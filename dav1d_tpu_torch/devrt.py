@@ -1,0 +1,89 @@
+"""Device-dispatch funnel (counterpart of dav1d_tpu/devrt.py).
+
+Every device operation of the decoder goes through :func:`call`, every
+kernel launch through :func:`launch`, every upload through
+:func:`upload` and every download through :func:`fetch`, so a run can
+observe what went to the device:
+
+* ``SINK``: when a list, ``call`` appends ``(tag, fn, args, kw)``;
+* ``XFER``: when a dict ``{"up": 0, "down": 0}``, uploads and downloads
+  add their bytes;
+* ``LAUNCHES``: kernel launches per tag.  Only :func:`launch` adds to it,
+  and it is called only where a CUDA kernel is launched — a plain
+  PyTorch version run on the CPU never counts;
+* ``SPANS``: when a dict, :func:`span` adds the host wall seconds of
+  each decode stage (pass1, pass2, chain) under its tag.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import time
+
+import numpy as np
+import torch
+
+SINK = None
+XFER = None
+SPANS = None
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def call(tag, fn, *args, **kw):
+    """Run one device operation ``fn(*args, **kw)``; record it when a
+    sink is installed."""
+    if SINK is not None:
+        SINK.append((tag, fn, args, kw))
+    return fn(*args, **kw)
+
+
+def launch(tag, cfn, *args) -> None:
+    """Call the C entry point ``cfn`` of a CUDA kernel, raise on a nonzero
+    ``cudaError_t`` and count the launch under ``tag``."""
+    rc = cfn(*args)
+    if rc != 0:
+        from .kernels.build import error_string
+
+        raise RuntimeError(f"{tag}: CUDA launch failed: {rc} "
+                           f"({error_string(rc)})")
+    LAUNCHES[tag] += 1
+
+
+@contextlib.contextmanager
+def span(tag):
+    """Time the enclosed stage into ``SPANS[tag]`` when spans are on."""
+    if SPANS is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        SPANS[tag] = SPANS.get(tag, 0.0) + time.perf_counter() - t0
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """Host numpy array -> tensor on ``device`` (transfer accounted)."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if XFER is not None:
+        XFER["up"] += a.nbytes
+    return t
+
+
+def fetch(x: torch.Tensor) -> np.ndarray:
+    """Device tensor -> host numpy array (transfer accounted)."""
+    a = x.cpu().numpy()
+    if XFER is not None:
+        XFER["down"] += a.nbytes
+    return a
+
+
+def narrow_cast(bitdepth: int):
+    """Cast of an int32 pixel plane to its narrow storage dtype before a
+    download: uint8 at 8-bit, int16 above (torch has no uint16
+    arithmetic; pixels stay below 4096).  Every filter stage clips into
+    [0, 2^bd), so the cast is exact and moves 4x (8-bit) / 2x
+    (10/12-bit) fewer bytes."""
+    dt = torch.uint8 if bitdepth == 8 else torch.int16
+    return lambda p: p.to(dt)

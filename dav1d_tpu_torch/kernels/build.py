@@ -1,0 +1,151 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+All ``csrc/*.cu`` files compile into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+
+The library is built at first use into ``dav1d_tpu_torch/_build/``
+(listed in .gitignore), named by a hash of the sources and flags, so a
+changed source rebuilds and an unchanged one loads at once.  ptxas's
+register/spill report is kept beside it (``<lib>.log``).  Nothing here
+runs at import: the CPU tests import every module of the package.
+
+Each C entry point launches on the stream it is given (the wrapper
+passes ``torch.cuda.current_stream()``) and returns ``cudaGetLastError()``;
+``devrt.launch`` raises on a nonzero return.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
+                           "-fPIC", "-Xptxas", "-v"]
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _tag() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the port's CUDA kernels are "
+                           "built from csrc/ on the machine with the GPU")
+    return nvcc
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hash-tagged library (once) and return
+    its path.  Raises with the compiler's output if nvcc fails."""
+    out = BUILD_DIR / f"libdav1d_tpu_torch_{_tag()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}"
+                           f"\n{r.stdout}{r.stderr}")
+    Path(str(out) + ".log").write_text(r.stdout + r.stderr)
+    os.replace(tmp, out)  # atomic: no process loads a partial file
+    return out
+
+
+def build_log() -> str:
+    p = Path(str(build()) + ".log")
+    return p.read_text() if p.exists() else ""
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+_SIGNATURES = {
+    # src, dst, cells, H, W, vertical, bitdepth, luma, stream
+    "dtpu_deblock": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # plane, H, W, bitdepth, bin_weights, dir, var, stream
+    "dtpu_cdef_dir": [_P, _I, _I, _I, _P, _P, _P, _P],
+    # src, dst, H, W, ph, pw, pm, sm, ncols, dmap, vmap, R8, W8, uw, uh,
+    # damping, bitdepth, luma, dir_dy, dir_dx, uv_dirs, stream
+    "dtpu_cdef_filter": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
+                         _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    so = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(so, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    so.dtpu_error_string.argtypes = [_I]
+    so.dtpu_error_string.restype = ctypes.c_char_p
+    return so
+
+
+def error_string(rc: int) -> str:
+    return lib().dtpu_error_string(int(rc)).decode()
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """Where a wrapper runs: True when every tensor lies on one CUDA
+    device (launch the kernel), False when every tensor lies on the CPU
+    (run the plain version).  Anything else raises."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError("tensors on several devices: "
+                         f"{sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {dev}")
+
+
+def check(t: torch.Tensor, name: str, shape=None,
+          dtype=torch.int32) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` (and
+    ``shape``, when given) — what the kernels take."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a C pointer."""
+    return torch.cuda.current_stream(t.device).cuda_stream

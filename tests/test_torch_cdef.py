@@ -1,0 +1,191 @@
+"""dav1d_tpu_torch CDEF (ops/cdef.py) vs the JAX package, bit-exact.
+
+* the plain direction search vs ops/cdef.cdef_find_dir_maps_dev (the XLA
+  program the chain runs) and the numpy golden batch;
+* the plain resident filter vs pallas_cdef.cdef_filter_plane_resident
+  (interpret mode on the CPU backend), luma and chroma, 4:2:0 and
+  4:2:2, bit depths 8/10/12, random unit maps with absent units, units
+  without direction, empty bands, and a plane larger than its filtered
+  region;
+* the port's cost-lattice bins and weights vs ops/cdef._cost_weights()
+  and recon/cdef._onehot_maps().
+
+The plain versions are what the wrappers run on CPU tensors; the CUDA
+kernels are compared with them on the card by chip_smoke.py.
+Tolerance: exact (integer codec)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dav1d_tpu.ops import cdef as dcdef
+from dav1d_tpu.ops.pallas_cdef import cdef_filter_plane_resident
+from dav1d_tpu.recon.cdef import cdef_find_dir_batch_np
+from dav1d_tpu_torch import state
+from dav1d_tpu_torch.ops import cdef as tcdef
+
+
+def test_cost_weights_match_reference():
+    """state.cdef_bin_weights() (8, 15) laid out as the reference's
+    (128, 8) matrix: the 8 partial-sum sets concatenated (15, 11, 8, 11,
+    15, 11, 8, 11 bins), cost row d weighting set d."""
+    bw = state.cdef_bin_weights()
+    w = np.zeros((128, 8), dtype=np.int32)
+    off = 0
+    for d, n in enumerate((15, 11, 8, 11, 15, 11, 8, 11)):
+        w[off:off + n, d] = bw[d, :n]
+        assert not bw[d, n:].any()
+        off += n
+    assert np.array_equal(w, dcdef._cost_weights().astype(np.int32))
+
+
+def test_bin_index_matches_onehot_maps():
+    from dav1d_tpu.recon.cdef import _onehot_maps
+
+    idx = state.cdef_bin_index()
+    for d, m in enumerate(_onehot_maps()):
+        assert np.array_equal(np.argmax(m, axis=1), idx[d])
+
+
+def _dir_plane(rng, ph, pw, bitdepth):
+    """Directional ramps plus noise, with a quarter of the 8x8 blocks
+    flat mid-grey (every cost 0: the strict first maximum must pick
+    direction 0) and a quarter flat at other levels."""
+    hi = 1 << bitdepth
+    yy, xx = np.mgrid[0:ph, 0:pw]
+    plane = ((yy * 3 + xx * rng.integers(-4, 5)) * (hi // 256)
+             + rng.integers(0, hi // 4, (ph, pw))) % hi
+    kind = np.repeat(np.repeat(rng.integers(0, 4, (-(-ph // 8), -(-pw // 8))),
+                               8, 0), 8, 1)[:ph, :pw]
+    level = np.repeat(np.repeat(rng.integers(0, hi, (-(-ph // 8),
+                                                     -(-pw // 8))),
+                                8, 0), 8, 1)[:ph, :pw]
+    plane = np.where(kind == 0, 128 << (bitdepth - 8), plane)
+    plane = np.where(kind == 1, level, plane)
+    return plane.astype(np.int32)
+
+
+@pytest.mark.parametrize("bitdepth", [8, 10, 12])
+@pytest.mark.parametrize("ph,pw", [(64, 96), (68, 100)])
+def test_plain_dir_matches_xla(bitdepth, ph, pw):
+    rng = np.random.default_rng(bitdepth + ph)
+    plane = _dir_plane(rng, ph, pw, bitdepth)
+    d_ref, v_ref = dcdef.cdef_find_dir_maps_dev(jnp.asarray(plane),
+                                                bitdepth)
+    d, v = tcdef.find_dir_maps(torch.from_numpy(plane), bitdepth)
+    assert np.array_equal(d.numpy(), np.asarray(d_ref))
+    assert np.array_equal(v.numpy(), np.asarray(v_ref))
+    # and the numpy golden batch on the same blocks
+    R8, W8 = ph // 8, pw // 8
+    blk = plane[:R8 * 8, :W8 * 8].reshape(R8, 8, W8, 8) \
+        .transpose(0, 2, 1, 3).reshape(-1, 8, 8)
+    dg, vg = cdef_find_dir_batch_np(blk, bitdepth)
+    assert np.array_equal(d.numpy().ravel(), dg)
+    assert np.array_equal(v.numpy().ravel(), vg)
+
+
+def _units(rng, nb, nc, bitdepth, frac_on=0.6):
+    """Random unit strengths: absent units, pri-only, sec-only, both."""
+    s = bitdepth - 8
+    on = rng.random((nb, nc)) < frac_on
+    pri = rng.integers(0, 16, (nb, nc)) * on
+    sec = rng.integers(0, 4, (nb, nc))
+    sec = (sec + (sec == 3)) * on
+    return (pri << s).astype(np.int64), (sec << s).astype(np.int64)
+
+
+CASES = [
+    # (luma, layout_422, w, h, ph, pw, H, W)
+    (True, False, 8, 8, 64, 96, 64, 96),
+    (True, False, 8, 8, 60, 92, 64, 96),    # filtered region < plane
+    (False, False, 4, 4, 32, 48, 32, 48),   # 4:2:0 chroma
+    (False, True, 4, 8, 64, 48, 64, 48),    # 4:2:2 chroma
+    (False, False, 4, 4, 30, 46, 32, 48),
+]
+
+
+@pytest.mark.parametrize("content", ["noise", "spikes"])
+@pytest.mark.parametrize("bitdepth", [8, 10, 12])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
+def test_plain_filter_matches_pallas_resident(case, bitdepth, content):
+    """noise: random strengths over random pixels.  spikes: isolated
+    bright pixels on a flat plane under the strongest strengths, where
+    the [min, max] clip bites — also next to the plane edge, where the
+    sentinel must not count as a minimum."""
+    luma, l422, w, h, ph, pw, H, W = case
+    rng = np.random.default_rng(bitdepth * 31 + ph + w)
+    nb, nc = -(-ph // h), -(-pw // w)
+    s = bitdepth - 8
+    if content == "noise":
+        plane = rng.integers(0, 1 << bitdepth, (H, W)).astype(np.int32)
+        pri, sec = _units(rng, nb, nc, bitdepth)
+    else:
+        plane = ((128 + 4 * (rng.random((H, W)) < 0.1)) << s) \
+            .astype(np.int32)
+        pri = np.full((nb, nc), 15 << s, np.int64)
+        sec = np.full((nb, nc), 4 << s, np.int64)
+    uys, uxs = np.nonzero((pri | sec) != 0)
+    uys, uxs = uys * h, uxs * w
+    upri, usec = pri[uys // h, uxs // w], sec[uys // h, uxs // w]
+    # direction / variance maps of a luma plane covering these units
+    luma_plane = rng.integers(0, 1 << bitdepth,
+                              (nb * 8, nc * 8)).astype(np.int32)
+    dmap, vmap = dcdef.cdef_find_dir_maps_dev(jnp.asarray(luma_plane),
+                                              bitdepth)
+    damping = 4 + (bitdepth - 8) + int(rng.integers(0, 3)) - (0 if luma
+                                                              else 1)
+    want = np.asarray(cdef_filter_plane_resident(
+        jnp.asarray(plane), dmap, vmap, ph, pw, uys, uxs, w, h, upri,
+        usec, damping, bitdepth, luma, l422, interpret=True))
+    got = tcdef.cdef_filter_plane_resident(
+        torch.from_numpy(plane), torch.from_numpy(np.array(dmap)),
+        torch.from_numpy(np.array(vmap)), ph, pw, uys, uxs, w, h, upri,
+        usec, damping, bitdepth, luma, l422).numpy()
+    assert np.array_equal(got, want), \
+        f"mismatch at {np.argwhere(got != want)[:4]}"
+
+
+@pytest.mark.parametrize("w,h", [(8, 8), (4, 4)])
+def test_empty_bands_pass_through(w, h):
+    """Units only in the first unit row: every later band passes
+    through unchanged, in both tiers."""
+    bitdepth, ph, pw = 8, 96, 192
+    rng = np.random.default_rng(7 + w)
+    plane = rng.integers(0, 256, (ph, pw)).astype(np.int32)
+    nc = pw // w
+    uys = np.zeros(nc, np.int64)
+    uxs = np.arange(nc, dtype=np.int64) * w
+    pri = rng.integers(1, 16, nc).astype(np.int64)
+    sec = rng.integers(0, 5, nc).astype(np.int64)
+    # one map cell per unit, as the luma 8x8 grid gives chroma units
+    dmap = np.asarray(rng.integers(0, 8, (ph // h, pw // w)), np.int32)
+    vmap = np.asarray(rng.integers(0, 1 << 12, dmap.shape), np.int32)
+    luma = w == 8
+    want = np.asarray(cdef_filter_plane_resident(
+        jnp.asarray(plane), jnp.asarray(dmap), jnp.asarray(vmap), ph, pw,
+        uys, uxs, w, h, pri, sec, 5 - (not luma), bitdepth, luma, False,
+        interpret=True))
+    got = tcdef.cdef_filter_plane_resident(
+        torch.from_numpy(plane), torch.from_numpy(dmap),
+        torch.from_numpy(vmap), ph, pw, uys, uxs, w, h, pri, sec,
+        5 - (not luma), bitdepth, luma, False).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got[h:], plane[h:])
+
+
+def test_wrappers_reject_bad_inputs():
+    p = torch.zeros((16, 16), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tcdef.find_dir_maps(p.to(torch.int16), 8)
+    with pytest.raises(ValueError):
+        tcdef.find_dir_maps(p, 9)
+    m = torch.zeros((2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):  # map shape does not match the units
+        tcdef.filter_plane(p, m[:1], m, m, m, 16, 16, 8, 8, 5, 8, True,
+                           False)
+    with pytest.raises(ValueError):
+        tcdef.filter_plane(p.to("meta"), m.to("meta"), m.to("meta"),
+                           m.to("meta"), m.to("meta"), 16, 16, 8, 8, 5, 8,
+                           True, False)

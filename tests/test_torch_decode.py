@@ -1,0 +1,235 @@
+"""dav1d_tpu_torch end to end on the CPU: the port's decoder
+(device="cpu", so its filter chain runs the plain PyTorch versions of
+the kernels) against the JAX package, bit-exact.
+
+* the four tests/test_device_e2e.CASES streams (inter tools, film grain
+  + restoration, 10-bit, super-res + restoration): the port's md5 equals
+  the JAX host tier's (DAV1D_TPU_DEVICE=0) and the JAX chain-on tier's
+  (DAV1D_TPU_DEVICE=1 with MC, itx and intra on the host);
+* the committed 10-bit smoke stream decodes to its committed md5;
+* in a subprocess, the port imports and decodes the committed 10-bit
+  stream to its md5 and imports no jax: once with jax unimportable, and
+  once with jax importable and the JAX package's dispatch reporting an
+  accelerator, as on a GPU machine that has jax installed.
+
+The port owns every stage that the JAX package routes through its
+dispatch (dav1d_tpu.dispatch), so while the port decodes here that
+dispatch reports an accelerator and refuses to be consulted: a reused
+stage that asked it would fail the decode.  DAV1D_TPU_DEVICE* are unset
+meanwhile."""
+
+import contextlib
+import hashlib
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from dav1d_tpu.containers import read_ivf
+from dav1d_tpu.dispatch import use_device
+from test_device_e2e import CASES
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+from aom_enc import AomEncoder, gradient_frames  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+DATA = REPO / "dav1d_tpu_torch" / "data"
+DEVICE_VARS = ("DAV1D_TPU_DEVICE", "DAV1D_TPU_DEVICE_MC",
+               "DAV1D_TPU_DEVICE_ITX", "DAV1D_TPU_DEVICE_IPRED")
+
+
+@contextlib.contextmanager
+def _device_env(**env):
+    """Set the JAX package's dispatch variables (others unset) for the
+    duration, restoring them and its dispatch cache afterwards."""
+    saved = {k: os.environ.get(k) for k in DEVICE_VARS}
+    try:
+        for k in DEVICE_VARS:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        use_device.cache_clear()
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        use_device.cache_clear()
+
+
+def _md5(dec, data):
+    h = hashlib.md5()
+    n = 0
+    for tu, _ in read_ivf(data):
+        dec.send_data(tu)
+        while (pic := dec.get_picture()) is not None:
+            for pl in range(len(pic.planes)):
+                h.update(pic.plane_bytes(pl))
+            n += 1
+    return n, h.hexdigest()
+
+
+def _settings():
+    from dav1d_tpu.decoder import Settings
+
+    return Settings(two_pass=True, max_frame_delay=4)
+
+
+def _jax_md5(data):
+    from dav1d_tpu.decoder import Decoder
+
+    return _md5(Decoder(_settings()), data)
+
+
+@contextlib.contextmanager
+def _refusing_dispatch():
+    """The JAX package's dispatch as on an accelerator machine, except
+    that every consultation is recorded and refused (yields the record)."""
+    import dav1d_tpu.dispatch as dispatch
+
+    asked = []
+
+    def _platform():
+        asked.append("_platform")
+        return "gpu"
+
+    def use_device(kind):
+        asked.append(kind)
+        raise AssertionError(f"dav1d_tpu.dispatch consulted for {kind!r}")
+
+    saved = dispatch._platform, dispatch.use_device
+    dispatch._platform, dispatch.use_device = _platform, use_device
+    try:
+        yield asked
+    finally:
+        dispatch._platform, dispatch.use_device = saved
+
+
+def _port_md5(data):
+    from dav1d_tpu_torch.decoder import Decoder
+
+    with _device_env(), _refusing_dispatch() as asked:
+        got = _md5(Decoder(_settings(), device="cpu"), data)
+    assert asked == [], f"the port consulted dav1d_tpu.dispatch: {asked}"
+    return got
+
+
+def _encode(name):
+    kw = dict(CASES[name])
+    n = kw.pop("n")
+    w, h = kw.pop("w"), kw.pop("h")
+    bitdepth = kw.pop("bitdepth", 8)
+    enc = AomEncoder(width=w, height=h, usage="good", kf_max_dist=9999,
+                     bitdepth=bitdepth, **kw)
+    pkts = enc.encode(gradient_frames(n, w, h, bitdepth=bitdepth))
+    enc.close()
+    import io
+    import struct
+
+    buf = io.BytesIO()
+    buf.write(struct.pack("<4sHH4sHHIII", b"DKIF", 0, 32, b"AV01", w, h,
+                          30, 1, len(pkts)))
+    buf.write(b"\0\0\0\0")
+    for pts, d in pkts:
+        buf.write(struct.pack("<IQ", len(d), pts))
+        buf.write(d)
+    return n, buf.getvalue()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_port_matches_jax_tiers(name):
+    n, data = _encode(name)
+    with _device_env(DAV1D_TPU_DEVICE="0"):
+        host = _jax_md5(data)
+    with _device_env(DAV1D_TPU_DEVICE="1", DAV1D_TPU_DEVICE_MC="0",
+                     DAV1D_TPU_DEVICE_ITX="0", DAV1D_TPU_DEVICE_IPRED="0"):
+        chain = _jax_md5(data)
+    port = _port_md5(data)
+    assert host[0] == n
+    assert chain == host, f"{name}: JAX chain-on tier diverges"
+    assert port == host, f"{name}: port diverges from the JAX host tier"
+
+
+def test_committed_stream_md5():
+    want = json.loads((DATA / "md5.json").read_text())["hbd10_128x96.ivf"]
+    n, md5 = _port_md5((DATA / "hbd10_128x96.ivf").read_bytes())
+    assert (n, md5) == (want["frames"], want["md5"])
+
+
+_NO_JAX = r"""
+import hashlib, importlib.abc, json, sys
+from pathlib import Path
+
+mode = sys.argv[3]
+tried = []  # jax imports attempted
+
+
+class _WatchJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            tried.append(name)
+            if mode == "blocked":
+                raise ImportError(f"{name} blocked")
+        return None
+
+
+sys.meta_path.insert(0, _WatchJax())
+sys.path.insert(0, sys.argv[1])
+import dav1d_tpu.dispatch as dispatch
+
+asked = []  # dispatch consultations
+if mode == "accelerator":
+    # jax stays importable; the dispatch answers as on a GPU machine
+    dispatch._platform = lambda: asked.append("_platform") or "gpu"
+    _use_device = dispatch.use_device
+    dispatch.use_device = lambda kind: asked.append(kind) or _use_device(kind)
+
+from dav1d_tpu.containers import read_ivf
+from dav1d_tpu_torch.decoder import Decoder, Settings
+
+data = Path(sys.argv[2]).read_bytes()
+dec = Decoder(Settings(two_pass=True, max_frame_delay=4), device="cpu")
+h = hashlib.md5()
+n = 0
+for tu, _ in read_ivf(data):
+    dec.send_data(tu)
+    while (pic := dec.get_picture()) is not None:
+        for pl in range(len(pic.planes)):
+            h.update(pic.plane_bytes(pl))
+        n += 1
+jax_mods = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
+print(json.dumps({"frames": n, "md5": h.hexdigest(), "tried": tried,
+                  "asked": asked, "jax_modules": jax_mods}))
+"""
+
+
+@pytest.mark.parametrize("mode", ["blocked", "accelerator"])
+def test_port_runs_without_jax(mode):
+    """The port decodes without touching jax: with jax unimportable, and
+    with jax importable while the JAX package's dispatch reports an
+    accelerator (where its reused stages would pick jax device tiers)."""
+    want = json.loads((DATA / "md5.json").read_text())["hbd10_128x96.ivf"]
+    env = {k: v for k, v in os.environ.items() if k not in DEVICE_VARS}
+    r = subprocess.run([sys.executable, "-c", _NO_JAX, str(REPO),
+                        str(DATA / "hbd10_128x96.ivf"), mode],
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got == {"frames": want["frames"], "md5": want["md5"],
+                   "tried": [], "asked": [], "jax_modules": []}
+
+
+def test_cuda_device_without_cuda_raises():
+    """No silent CPU run: asking for CUDA where there is none raises."""
+    import torch
+
+    from dav1d_tpu_torch.decoder import Decoder
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Decoder(_settings())

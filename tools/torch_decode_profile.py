@@ -1,0 +1,79 @@
+"""Where the time goes in a dav1d_tpu_torch decode on a CUDA card.
+
+Decodes the committed 1080p stream (dav1d_tpu_torch/data/) once to warm
+up, then once under torch.profiler (CPU + CUDA activity), and prints:
+
+* wall ms per frame of the profiled decode;
+* device time per kernel / memcpy name (self device time, summed);
+* the device's busy share: summed device time over the decode's wall
+  time (kernels and copies may overlap each other, so this is an upper
+  bound of the busy share, and 1 minus it a lower bound of the idle
+  share).
+
+Like chip_smoke.py it fails if the decode imported jax.  Run from the
+repository root; with a path argument the chrome trace is written there:
+
+    python3 tools/torch_decode_profile.py [trace.json]
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    data = (chip_smoke.DATA / chip_smoke.MAIN_STREAM).read_bytes()
+    chip_smoke.decode(data, device, hashing=False)  # warm-up + build
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n, _ = chip_smoke.decode(data, device, hashing=False)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    if len(sys.argv) > 1:
+        Path(sys.argv[1]).parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(sys.argv[1])
+
+    from torch.autograd import DeviceType
+
+    rows = []
+    for evt in prof.key_averages():
+        # device-side activities only (kernels, memcpys): a CPU op's
+        # device time repeats the activities it launched
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, evt.count, evt.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    print(f"profiled decode: {n} frames, wall {wall_us / n / 1e3:.3f} "
+          f"ms/frame")
+    for dev_us, count, key in rows[:25]:
+        print(f"  {dev_us / n / 1e3:9.4f} ms/frame  {count:5d} calls  "
+              f"{key[:90]}")
+    print(f"device time {total / n / 1e3:.4f} ms/frame; busy share <= "
+          f"{total / wall_us:.4f} of the decode wall time")
+    assert not chip_smoke._jax_modules()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

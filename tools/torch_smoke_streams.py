@@ -1,0 +1,81 @@
+"""Generate the streams and md5s that dav1d_tpu_torch commits for its
+GPU smoke run (dav1d_tpu_torch/data/).
+
+The machine that runs chip_smoke.py has neither libaom nor jax, so the
+streams and their expected md5s are made here and committed:
+
+- ``inter_1080p_8bit.ivf``: bench.py's 1080p 8-bit 4:2:0 inter stream
+  (libaom cpu_used=8, q=45, 4 frames, bench.py:_make_stream);
+- ``hbd10_128x96.ivf``: tests/test_device_e2e.CASES["hbd10"]
+  (128x96 10-bit, 3 frames).
+
+The md5 of each stream is the JAX package's host tier
+(DAV1D_TPU_DEVICE=0) over every plane of every output picture, in the
+tests/test_device_e2e._decode_md5 convention.
+
+Run from the repository root:  python tools/torch_smoke_streams.py
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
+
+OUT = ROOT / "dav1d_tpu_torch" / "data"
+
+STREAMS = {
+    "inter_1080p_8bit.ivf": dict(
+        n=4, w=1920, h=1080, bitdepth=8,
+        enc=dict(usage="good", cpu_used=8, q=45, kf_max_dist=9999, lag=0,
+                 options={"enable-order-hint": 1})),
+    "hbd10_128x96.ivf": dict(
+        n=3, w=128, h=96, bitdepth=10,
+        enc=dict(usage="good", kf_max_dist=9999)),
+}
+
+
+def _host_md5(data: bytes):
+    from dav1d_tpu.containers import read_ivf
+    from dav1d_tpu.decoder import Decoder, Settings
+
+    dec = Decoder(Settings(two_pass=True, max_frame_delay=4))
+    h = hashlib.md5()
+    n = 0
+    for tu, _ in read_ivf(data):
+        dec.send_data(tu)
+        while (pic := dec.get_picture()) is not None:
+            for pl in range(len(pic.planes)):
+                h.update(pic.plane_bytes(pl))
+            n += 1
+    return n, h.hexdigest()
+
+
+def main() -> None:
+    os.environ["DAV1D_TPU_DEVICE"] = "0"
+    from aom_enc import AomEncoder, gradient_frames, write_ivf_packets
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    md5s = {}
+    for name, spec in STREAMS.items():
+        w, h, bd = spec["w"], spec["h"], spec["bitdepth"]
+        enc = AomEncoder(width=w, height=h, bitdepth=bd, **spec["enc"])
+        pkts = enc.encode(gradient_frames(spec["n"], w, h, bitdepth=bd))
+        enc.close()
+        path = OUT / name
+        write_ivf_packets(path, pkts, w, h)
+        n, md5 = _host_md5(path.read_bytes())
+        md5s[name] = {"frames": n, "md5": md5, "width": w, "height": h,
+                      "bitdepth": bd, "bytes": path.stat().st_size}
+        print(name, md5s[name], flush=True)
+    (OUT / "md5.json").write_text(json.dumps(md5s, indent=1) + "\n")
+
+
+if __name__ == "__main__":
+    main()
