@@ -7,26 +7,39 @@ built for CUDA and nvcc (no libaom, no network needed):
 
     python3 chip_smoke.py
 
-The port never imports jax, even where jax is installed: it consults
-no part of the JAX package that picks jax device tiers, so only the
-port's kernels touch the card.  The run fails if jax was imported.
+The port imports nothing of the JAX package and never imports jax,
+even where jax is installed, so only the port's kernels touch the card.
+The run fails if jax was imported.
 
 Phases; any failure exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the port's kernels from csrc/ (nvcc, sm_90a);
+2. build the port's kernels from csrc/ (one nvcc per source, sm_90a)
+   and, at the same time, the port's native C (cc, native/);
 3. hold each kernel against its plain PyTorch version on the card,
    exactly, at the decoder's 1080p shapes (4:2:0 luma and chroma planes,
-   random edge/unit maps with every class present), bit depths 8/10/12;
+   random edge/unit maps with every class present; MC job lists over
+   three references with every block size the device-MC selection
+   takes, windows inside, over every edge and beyond the reference's
+   MC_PAD border, junk in the allocation rows and columns beyond the
+   coded size), bit depths 8/10/12;
 4. decode the committed 1080p 8-bit inter stream (the main path) and the
    committed 10-bit stream with ``Decoder(..., device="cuda")`` through
    send_data/get_picture, and check the md5 of every output plane
    against the committed md5 (the JAX package's host tier).  The launch
    counts are zeroed just before the 1080p decode and read just after:
-   every kernel must have launched at least once per frame;
-5. time the 1080p decode (frames/s, best of 3 after the warm-up decode)
-   and each kernel against its plain version (CUDA events, in turns
-   plain, kernel, kernel, plain).
+   every filter-chain kernel must have launched at least once per frame
+   and the MC kernel at least once per inter frame; the share of inter
+   blocks the MC kernel predicted is printed;
+5. time the 1080p decode (frames/s, best of 3 after the warm-up decode),
+   then decode it once more with the stage spans and transfer counters
+   on, capturing the MC kernel's real per-frame calls: each is held
+   against the plain version (exact); time each kernel against its plain
+   version (CUDA events, in turns plain, kernel, kernel, plain): the
+   chain kernels on the 8-bit 1080p luma case of phase 3, MC on the
+   largest captured frame; and compute each kernel's bound, the least
+   time the card could take for the same inputs (bytes over 3.35 TB/s
+   or 32-bit operations over 67 Tops/s, whichever is larger).
 
 The line before the last is the kernels' JSON report; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -39,6 +52,7 @@ import json
 import struct
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -57,7 +71,19 @@ KERNELS = {
                  "dav1d_tpu/ops/cdef.py:159"),
     "cdef_filter": ("dav1d_tpu_torch/csrc/cdef_filter.cu",
                     "dav1d_tpu/ops/pallas_cdef.py:200"),
+    "mc": ("dav1d_tpu_torch/csrc/mc.cu",
+           "dav1d_tpu/ops/pallas_mc.py:164"),
 }
+
+# the card's peak rates for the bounds (H100 SXM data sheet, at 700 W):
+# device memory, and 32-bit scalar operations outside the tensor cores
+# (the float32 rate; integer operations issue at most as fast, so the
+# operation bound is a lower bound)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# the JAX package's replicated MC border (dav1d_tpu/pipeline.py MC_PAD):
+# windows beyond it took the reference's slowest tier
+MC_PAD = 64
 
 
 class SmokeError(RuntimeError):
@@ -156,6 +182,67 @@ SHAPES = {"luma": (1088, 1920, 1080, 1920),
           "chroma": (544, 960, 540, 960)}
 
 
+def _mc_args(rng, device, bitdepth, shapes=SHAPES, n_refs=3, per=8):
+    """MC kernel arguments as a frame gives them: ``n_refs`` references
+    of (luma, chroma, chroma) planes, allocation-sized with junk beyond
+    the coded size; ``per`` jobs per (plane, block size) for every block
+    size the 4:2:0 selection takes, a third of them inside the plane, a
+    third over an edge, the rest anywhere up to 2*MC_PAD outside; filter
+    rows from the subpel table, identity rows and random signed taps."""
+    import numpy as np
+    import torch
+
+    from dav1d_tpu_torch import tables
+    from dav1d_tpu_torch.ops import mc as omc
+
+    planes, coded, sub = [], [], []
+    for _ in range(n_refs):
+        for kind in ("luma", "chroma", "chroma"):
+            H, W, vh, vw = shapes[kind]
+            p = rng.integers(0, 1 << bitdepth, (H, W))
+            junk = rng.integers(-(1 << 20), 1 << 20, (H, W))
+            p[vh:] = junk[vh:]
+            p[:, vw:] = junk[:, vw:]
+            planes.append(torch.from_numpy(p.astype(np.int32)).to(device))
+            coded.append((vh, vw))
+            sub.append(kind == "chroma")
+    bdim = tables.block_dimensions[:22]
+    subf = tables.mc_subpel_filters.astype(np.int32)
+    cols = []
+    for e, (vh, vw) in enumerate(coded):
+        for bw4, bh4 in bdim[(bdim[:, 0] > 1) & (bdim[:, 1] > 1), :2]:
+            w, h = (int(bw4) * 4) >> sub[e], (int(bh4) * 4) >> sub[e]
+            dy = rng.integers(-h - 2 * MC_PAD, vh + 2 * MC_PAD, per)
+            dx = rng.integers(-w - 2 * MC_PAD, vw + 2 * MC_PAD, per)
+            q = per // 3
+            dy[:q] = rng.integers(0, vh - h, q)
+            dx[:q] = rng.integers(0, vw - w, q)
+            dy[q:2 * q] = rng.integers(-h - 4, 4, q)
+            dx[q:2 * q] = rng.integers(vw - w - 4, vw + 4, q)
+            fl = []
+            for side in (w, h):
+                sets = rng.integers(0, 3, per)
+                sets = sets if side > 4 else 3 + (sets & 1)
+                rows = subf[sets, rng.integers(0, 15, per)]
+                kind = rng.integers(0, 3, per)
+                rows[kind == 1] = 0
+                rows[kind == 1, 3] = 64
+                rows[kind == 2] = rng.integers(-64, 128, (per, 8))[kind == 2]
+                fl.append(rows)
+            cols.append((np.full(per, e), dy, dx, np.full(per, w),
+                         np.full(per, h), *fl))
+    e, dy, dx, w, h, fh, fv = (np.concatenate(c) for c in zip(*cols))
+    order = rng.permutation(len(e))
+    # output: each job's block in a row of blocks 128 wide (stride 128)
+    size = (128 * h)[order].astype(np.int64)
+    off = np.cumsum(size) - size
+    jobs, n_pix = omc.job_table(e[order], dy[order], dx[order], w[order],
+                                h[order], off, 128, fh[order], fv[order],
+                                int(size.sum()))
+    return (planes, coded, torch.from_numpy(jobs).to(device), n_pix,
+            int(size.sum()), bitdepth)
+
+
 def make_cases(device, shapes=SHAPES, seed=0):
     """Kernel inputs at the main path's shapes for bit depths 8/10/12:
     {kernel: [(label, kernel_fn, plain_fn, args), ...]}."""
@@ -164,6 +251,7 @@ def make_cases(device, shapes=SHAPES, seed=0):
 
     from dav1d_tpu_torch.ops import cdef as ocdef
     from dav1d_tpu_torch.ops import lf as olf
+    from dav1d_tpu_torch.ops import mc as omc
 
     rng = np.random.default_rng(seed)
 
@@ -204,6 +292,9 @@ def make_cases(device, shapes=SHAPES, seed=0):
                 ocdef.filter_plane_plain,
                 (dev(_spikes(rng, H, W, bd)), *strong, *dmaps, ph, pw, w, h,
                  damping, bd, luma, False)))
+        cases["mc"].append((
+            f"3 refs x 3 planes, all sizes bd{bd}", omc.put_8tap_resident,
+            omc.put_8tap_resident_plain, _mc_args(rng, device, bd, shapes)))
     return cases
 
 
@@ -251,12 +342,12 @@ def read_ivf(data):
 
 def decode(data, device, hashing=True):
     """Decode an IVF stream with the port's public API; returns
-    (frames, md5 over every plane of every picture)."""
+    (frames, md5 over every plane of every picture, inter frames)."""
     from dav1d_tpu_torch.decoder import Decoder, Settings
 
     dec = Decoder(Settings(two_pass=True, max_frame_delay=4), device=device)
     h = hashlib.md5()
-    n = 0
+    n = n_inter = 0
     for tu in read_ivf(data):
         dec.send_data(tu)
         while (pic := dec.get_picture()) is not None:
@@ -264,19 +355,22 @@ def decode(data, device, hashing=True):
                 for pl in range(len(pic.planes)):
                     h.update(pic.plane_bytes(pl))
             n += 1
+            n_inter += bool(pic.frame_hdr.frame_type.is_inter_or_switch)
     dec.close()
-    return n, h.hexdigest()
+    return n, h.hexdigest(), n_inter
 
 
 def decode_checked(name, device):
+    """Decode a committed stream, check its md5; returns (frames, inter
+    frames)."""
     want = json.loads((DATA / "md5.json").read_text())[name]
-    n, md5 = decode((DATA / name).read_bytes(), device)
-    print(f"  {name}: {n} frames md5 {md5} (want {want['md5']})",
-          flush=True)
+    n, md5, n_inter = decode((DATA / name).read_bytes(), device)
+    print(f"  {name}: {n} frames ({n_inter} inter) md5 {md5} (want "
+          f"{want['md5']})", flush=True)
     _require((n, md5) == (want["frames"], want["md5"]),
              f"{name}: decoded {n} frames md5 {md5}, want "
              f"{want['frames']} frames md5 {want['md5']}")
-    return n
+    return n, n_inter
 
 
 # ---- timing ------------------------------------------------------------
@@ -296,19 +390,104 @@ def cuda_ms(fn, reps=20):
     return t0.elapsed_time(t1) / reps
 
 
-def time_kernels(cases):
-    """ms per call of each kernel and its plain version at the 8-bit
-    1080p luma case, in turns plain, kernel, kernel, plain (best of
-    two each)."""
+def time_kernels(timed):
+    """ms per call of each kernel and its plain version on the inputs of
+    ``timed`` {name: (label, kernel_fn, plain_fn, args)}, in turns
+    plain, kernel, kernel, plain (best of two each)."""
     out = {}
-    for name, items in cases.items():
-        label, kfn, pfn, args = items[0]
+    for name, (label, kfn, pfn, args) in timed.items():
         times = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
             fn = kfn if which == "kernel" else pfn
             times[which].append(cuda_ms(lambda: fn(*args)))
         out[name] = (min(times["kernel"]), min(times["plain"]), label)
     return out
+
+
+# ---- bounds ------------------------------------------------------------
+
+def _kernel_of(tag, args):
+    """KERNELS name of a ``devrt.call`` record (the deblock wrapper is one
+    call for both directions)."""
+    if tag == "deblock":
+        return "deblock_v" if args[2] else "deblock_h"
+    return tag
+
+def _mc_footprint(coded, jobs):
+    """Distinct reference pixels the jobs' clamped windows read (a
+    clamped window is a rectangle of its plane): 2-D difference array of
+    the rectangles, integrated, counted where covered."""
+    import torch
+
+    j = jobs.long()
+    total = 0
+    for e, (vh, vw) in enumerate(coded):
+        g = j[j[:, 0] == e]
+        if not len(g):
+            continue
+        y0 = (g[:, 1] - 3).clamp(0, vh - 1)
+        y1 = (g[:, 1] + g[:, 4] + 3).clamp(0, vh - 1) + 1
+        x0 = (g[:, 2] - 3).clamp(0, vw - 1)
+        x1 = (g[:, 2] + g[:, 3] + 3).clamp(0, vw - 1) + 1
+        d = torch.zeros((vh + 1, vw + 1), dtype=torch.int32,
+                        device=jobs.device)
+        one = torch.ones_like(y0, dtype=torch.int32)
+        for ys, xs, v in ((y0, x0, one), (y0, x1, -one), (y1, x0, -one),
+                          (y1, x1, one)):
+            d.index_put_((ys, xs), v, accumulate=True)
+        total += int((d.cumsum(0).cumsum(1)[:vh, :vw] > 0).sum())
+    return total
+
+
+def work(name, args):
+    """(bytes, 32-bit operations) that the function needs on ``args``:
+    each input byte read once and each output byte written once, and
+    the operations of the plain algorithm counted from below."""
+    import torch
+
+    if name in ("deblock_v", "deblock_h"):
+        src, cells = args[0], args[1]
+        nbytes = 2 * src.numel() * 4 + cells.numel() * 4
+        # >= 20 operations per edge line: the filter-mask test and the
+        # narrow filter
+        return nbytes, 20 * 4 * int(torch.count_nonzero(cells))
+    if name == "cdef_dir":
+        plane = args[0]
+        nb = (plane.shape[0] // 8) * (plane.shape[1] // 8)
+        # per pixel: 8 partial-sum adds, shift, offset; per block: the 90
+        # cost bins (square, weight, add) and the argmax
+        return plane.numel() * 4 + 2 * nb * 4, nb * (64 * 10 + 290)
+    if name == "cdef_filter":
+        plane, pm, sm, dmap, vmap = args[:5]
+        w, h = args[7], args[8]
+        nbytes = (2 * plane.numel() + pm.numel() + sm.numel() + dmap.numel()
+                  + vmap.numel()) * 4
+        active = int(torch.count_nonzero(pm | sm)) * w * h
+        # per filtered pixel: 12 taps, each a constrain (~8 operations)
+        return nbytes, active * 100
+    if name == "mc":
+        planes, coded, jobs, n_pix, n_out, bitdepth = args
+        j = jobs.long()
+        w, h = j[:, 3], j[:, 4]
+        # reads: the reference pixels under the clamped windows and the
+        # jobs; writes: the predicted pixels
+        nbytes = (4 * _mc_footprint(coded, jobs) + jobs.numel() * 4
+                  + n_pix * (1 if bitdepth == 8 else 2))
+        # separable 8-tap: (h+7)*w horizontal and h*w vertical sums of
+        # 8 products (15 operations), each rounded (2) and clipped (2)
+        ops = int(((h + 7) * w * 17 + h * w * 19).sum())
+        return nbytes, ops
+    raise KeyError(name)
+
+
+def bound(name, args):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the operation rate."""
+    nbytes, ops = work(name, args)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
 
 
 def main() -> int:
@@ -321,6 +500,8 @@ def main() -> int:
              "run from a checkout of the repository")
     _require(not _jax_modules(), f"jax already imported: {_jax_modules()}")
     sys.path.insert(0, str(ROOT))
+    from dav1d_tpu_torch.ops import mc as omc
+
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
 
@@ -338,10 +519,27 @@ def main() -> int:
     from dav1d_tpu_torch import devrt
     from dav1d_tpu_torch.kernels import build
 
+    native = {}
+
+    def _native():
+        t = time.perf_counter()
+        from dav1d_tpu_torch import native as nat
+
+        native["lib"], native["s"] = nat.lib, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    so = build.build()
-    build.lib()
+    th = threading.Thread(target=_native)
+    th.start()  # cc of native/ beside the nvcc builds
+    try:
+        so = build.build()
+        build.lib()
+    finally:
+        th.join()
     print(f"  {so.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    _require(native.get("lib") is not None,
+             "the port's native C did not build (dav1d_tpu_torch/native)")
+    print(f"  native C {native['lib']._name.rsplit('/', 1)[-1]} in "
+          f"{native['s']:.1f} s", flush=True)
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             print("  ptxas:", line.strip(), flush=True)
@@ -354,51 +552,92 @@ def main() -> int:
     print("== 4. decode through Decoder(device='cuda')", flush=True)
     data = (DATA / MAIN_STREAM).read_bytes()
     devrt.LAUNCHES.clear()
-    nframes = decode_checked(MAIN_STREAM, device)
+    devrt.COUNTS.clear()
+    nframes, ninter = decode_checked(MAIN_STREAM, device)
     launches = {k: devrt.LAUNCHES[k] for k in KERNELS}
+    blocks = dict(devrt.COUNTS)
     print(f"  launches in the {MAIN_STREAM} decode: {launches}", flush=True)
+    print(f"  MC kernel predicted {blocks.get('mc_blocks', 0)} of "
+          f"{blocks.get('inter_blocks', 0)} inter blocks", flush=True)
     for k, n in launches.items():
-        _require(n >= nframes, f"{k}: {n} launches over {nframes} frames")
+        want = ninter if k == "mc" else nframes
+        _require(n >= want, f"{k}: {n} launches, want >= {want} "
+                 f"({nframes} frames, {ninter} inter)")
+    _require(ninter >= 3, f"{MAIN_STREAM}: {ninter} inter frames")
     devrt.LAUNCHES.clear()
+    devrt.COUNTS.clear()
     decode_checked(HBD_STREAM, device)
     hbd = {k: devrt.LAUNCHES[k] for k in KERNELS}
-    print(f"  launches in the {HBD_STREAM} decode: {hbd}", flush=True)
+    print(f"  launches in the {HBD_STREAM} decode: {hbd}; MC kernel "
+          f"predicted {devrt.COUNTS['mc_blocks']} of "
+          f"{devrt.COUNTS['inter_blocks']} inter blocks", flush=True)
     _require(hbd["cdef_filter"] > 0, "10-bit decode ran no CDEF kernel")
+    _require(hbd["mc"] > 0, "10-bit decode ran no MC kernel")
 
     print("== 5. timing", flush=True)
     runs = []
     for _ in range(3):
         t0 = time.perf_counter()
-        n, _ = decode(data, device, hashing=False)
+        n, _, _ = decode(data, device, hashing=False)
         runs.append(n / (time.perf_counter() - t0))
     fps = max(runs)
     print(f"  {MAIN_STREAM}: {fps:.3f} frames/s (best of 3 after the "
           f"warm-up decode; runs {[round(r, 3) for r in runs]}) on "
           f"{card}", flush=True)
-    # one more decode with the stage spans and transfer counters on
-    devrt.SPANS, devrt.XFER = {}, {"up": 0, "down": 0}
+    # one more decode with the stage spans and transfer counters on,
+    # capturing the MC kernel's calls
+    devrt.SPANS, devrt.XFER, devrt.SINK = {}, {"up": 0, "down": 0}, []
     t0 = time.perf_counter()
-    n, _ = decode(data, device, hashing=False)
+    n, _, _ = decode(data, device, hashing=False)
     wall = time.perf_counter() - t0
     spans, xfer = devrt.SPANS, devrt.XFER
-    devrt.SPANS = devrt.XFER = None
+    calls = [(_kernel_of(tag, args), args) for tag, _, args, _ in devrt.SINK]
+    mc_calls = [args for name, args in calls if name == "mc"]
+    devrt.SPANS = devrt.XFER = devrt.SINK = None
     stages = {k: round(v * 1e3 / n, 3) for k, v in sorted(spans.items())}
     print(f"  per frame: wall {wall * 1e3 / n:.3f} ms, stages (ms) "
           f"{stages}, upload {xfer['up'] // n} B, download "
           f"{xfer['down'] // n} B", flush=True)
-    times = time_kernels(cases)
+    # the least device time per frame of each kernel on the decode's own
+    # calls (compare with tools/torch_decode_profile.py's device times)
+    frame_bound = {k: sum(bound(k, a)[0] for name, a in calls if name == k)
+                   / n for k in KERNELS}
+    print(f"  bound per frame on the decode's calls (ms): "
+          f"{ {k: round(v, 5) for k, v in frame_bound.items()} }",
+          flush=True)
+    _require(mc_calls, "the traced decode made no MC call")
+    for i, args in enumerate(mc_calls):
+        e = _max_abs_err(omc.put_8tap_resident(*args),
+                         omc.put_8tap_resident_plain(*args))
+        print(f"  mc decode call {i}: {args[2].shape[0]} jobs, {args[3]} "
+              f"pixels, max_abs_err={e}", flush=True)
+        errs["mc"] = max(errs["mc"], e)
+    _require(errs["mc"] == 0, "mc disagrees with its plain version on "
+             "the decode's calls")
+    timed = {name: items[0] for name, items in cases.items()}
+    big = max(mc_calls, key=lambda a: a[3])
+    timed["mc"] = (f"1080p inter frame of the decode ({big[2].shape[0]} "
+                   f"jobs)", omc.put_8tap_resident,
+                   omc.put_8tap_resident_plain, big)
+    times = time_kernels(timed)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         ms, plain_ms, label = times[name]
+        bound_ms, bound_by = bound(name, timed[name][3])
         print(f"  {name:12s} {label}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms", flush=True)
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
     _require(not _jax_modules(), f"jax was imported: {_jax_modules()}")
     print(json.dumps({"decode_fps": fps, "decode_fps_runs": runs,
                       "stage_ms_per_frame": stages, "stream": MAIN_STREAM,
+                      "xfer_bytes_per_frame": {k: v // n
+                                               for k, v in xfer.items()},
+                      "bound_ms_per_frame": frame_bound,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,10 @@ observe what went to the device:
   and it is called only where a CUDA kernel is launched — a plain
   PyTorch version run on the CPU never counts;
 * ``SPANS``: when a dict, :func:`span` adds the host wall seconds of
-  each decode stage (pass1, pass2, chain) under its tag.
+  each decode stage (pass1, pass2, chain and their parts) under its tag;
+* ``COUNTS``: work counted by the stages, always on: ``inter_blocks``
+  (inter blocks of the decoded frames) and ``mc_blocks`` (the blocks
+  whose predictions the batched MC stage computed on the device).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ SINK = None
 XFER = None
 SPANS = None
 LAUNCHES: collections.Counter = collections.Counter()
+COUNTS: collections.Counter = collections.Counter()
 
 
 def call(tag, fn, *args, **kw):

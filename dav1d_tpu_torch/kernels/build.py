@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 All ``csrc/*.cu`` files compile into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds):
+interface (no PyTorch headers, so the build takes seconds): one nvcc per
+source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <src>.o csrc/<src>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> *.o
 
 The library is built at first use into ``dav1d_tpu_torch/_build/``
 (listed in .gitignore), named by a hash of the sources and flags, so a
@@ -34,8 +36,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
 
 
 def sources() -> list:
@@ -67,17 +69,34 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}"
-                           f"\n{r.stdout}{r.stderr}")
-    Path(str(out) + ".log").write_text(r.stdout + r.stderr)
-    os.replace(tmp, out)  # atomic: no process loads a partial file
+    nvcc = _nvcc()
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        jobs = []
+        for src in sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(tmp / f"{src.stem}.o"),
+                   str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in jobs]
+        for cmd, log, rc in logs:
+            _check(cmd, log, rc)
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp / "lib.so"),
+                *(str(tmp / f"{src.stem}.o") for src in sources())]
+        r = subprocess.run(link, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        _check(link, r.stdout, r.returncode)
+        Path(str(out) + ".log").write_text("".join(log for _, log, _ in logs))
+        os.replace(tmp / "lib.so", out)  # atomic: no partial file loads
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def _check(cmd, log, rc):
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
 
 
 def build_log() -> str:
@@ -97,6 +116,8 @@ _SIGNATURES = {
     # damping, bitdepth, luma, dir_dy, dir_dx, uv_dirs, stream
     "dtpu_cdef_filter": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
                          _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # table, jobs, n_jobs, n_pix, out, bitdepth, stream
+    "dtpu_mc_put_8tap": [_P, _P, _I, _I, _P, _I, _P],
 }
 
 

@@ -4,7 +4,7 @@ itx_batch_c_ptrs).
 
 The JAX module holds these beside its device programs and imports jax
 at its top, so the port carries the host helpers over: numpy plus the
-native C batch of dav1d_tpu.native.  The device transform (TPU
+native C batch of the port's native/.  The device transform (TPU
 ops/itx._itx_core, Pallas ops/pallas_itx) is not ported yet: itx stays
 on this host tier.
 """
@@ -15,10 +15,10 @@ import functools
 
 import numpy as np
 
-from dav1d_tpu import tables
-from dav1d_tpu.bufpool import take as _take
-from dav1d_tpu.levels import TxfmType
-from dav1d_tpu.recon.itx import TX1D_TYPES, TX_SHIFT
+from .. import tables
+from ..bufpool import take as _take
+from ..levels import TxfmType
+from ..recon.itx import TX1D_TYPES, TX_SHIFT
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,7 +46,7 @@ def itx_batch_c_ptrs(ptrs, tx, txtp, bitdepth, eob=None):
     blocks in the pass-1 capture arena (ops/itx.itx_batch_c_ptrs).
     Residuals come back int16 for bitdepth <= 10 and int32 at 12-bit
     (12-bit IDTX exceeds int16)."""
-    from dav1d_tpu.native import lib as _nlib
+    from ..native import lib as _nlib
 
     n = len(ptrs)
     w, h, lw, lh = _txinfo(tx)

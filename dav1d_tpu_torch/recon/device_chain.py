@@ -13,10 +13,18 @@ recon/cdef.py.
 
 Super-res and loop restoration are not ported to the device yet: for a
 frame that uses them the post-deblock planes come down as ``f.pre_cdef``
-and the host forms below (``_superres_frame``, recon/lr_apply.lr_frame)
+and the host forms (decode/frame._superres_frame, recon/lr_apply.lr_frame)
 finish the chain, in the order of the reference's host chain
-(dav1d_tpu/decode/frame.decode_frame_finish).  A frame with neither
-deblock nor CDEF never goes up to the device.
+(dav1d_tpu/decode/frame.decode_frame_finish).
+
+The frame's final planes stay on the device as ``f._dev_planes`` (int32,
+allocation-sized), which the decoder binds into the reference slots the
+frame refreshes: the MC of later frames reads them there
+(pipeline._launch_mc_device; reference recon/device_chain.py:319-323).
+They equal the host's final planes pixel for pixel: where a host stage
+changed the planes after the download (super-res, loop restoration), or
+where the chain did not run (neither deblock nor CDEF), the final host
+planes go up instead.
 Nothing here catches a device failure: an error in a kernel raises out
 of the decode.
 """
@@ -26,16 +34,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dav1d_tpu.bufpool import take as _take
-from dav1d_tpu.decode.frame import superres_geometry
-from dav1d_tpu.headers import PixelLayout
-from dav1d_tpu.recon.cdef import cdef_collect
-from dav1d_tpu.recon.lf import _collect_edges, _fix_tile_boundaries
-from dav1d_tpu.recon.mc_np import resize_row
-
 from .. import devrt, state
+from ..decode.frame import _superres_frame
+from ..headers import PixelLayout
 from ..ops import cdef as ocdef
 from ..ops import lf as olf
+from .cdef import cdef_collect
+from .lf import _collect_edges, _fix_tile_boundaries
 from .lr_apply import lr_frame
 
 
@@ -108,26 +113,12 @@ def _cdef(f, dev):
             f.layout == PixelLayout.I422)
 
 
-def _superres_frame(f, planes):
-    """Upscale all planes horizontally on the host (counterpart of the
-    host branch of dav1d_tpu/decode/frame._superres_frame: reference
-    resize_c, step/start per src/decode.c:3524-3539)."""
-    out_planes = []
-    for pl, p in enumerate(planes):
-        out_w, src_w, step, mx0, h, alloc_w = superres_geometry(f, pl)
-        dst = _take((p.shape[0], alloc_w), np.int32)
-        dst[h:, :] = 0
-        dst[:h, out_w:] = 0
-        dst[:h, :out_w] = resize_row(p[:h, :src_w], out_w, src_w, step,
-                                     mx0, f.bitdepth)
-        out_planes.append(dst)
-    return out_planes
-
-
 def filter_chain_device(f, device) -> None:
     """The frame's in-loop filter chain: deblock -> CDEF on
     ``device``-resident planes (the planes go up only when one of them
-    is on), then super-res and loop restoration on the host."""
+    is on), then super-res and loop restoration on the host.  Leaves the
+    final planes resident as ``f._dev_planes`` when the frame refreshes
+    a reference slot."""
     hdr = f.frame_hdr
     seq = f.seq_hdr
     lf = hdr.loopfilter
@@ -139,6 +130,7 @@ def filter_chain_device(f, device) -> None:
     do_lr = f.restore_planes and (f.inloop_filters & 4)
 
     f.pre_cdef = None
+    dev = None
     if do_deblock or do_cdef:
         with devrt.span("chain.upload"):
             dev = state.upload_planes(f.planes, f.bitdepth, device)
@@ -171,3 +163,12 @@ def filter_chain_device(f, device) -> None:
             f.pre_cdef = _superres_frame(f, f.pre_cdef)
     if do_lr:
         lr_frame(f)
+
+    f._dev_planes = None
+    if hdr.refresh_frame_flags:
+        if dev is None or f.sr_planes is not f.planes or do_lr:
+            # the device planes are not the final ones (or there are
+            # none): the final host planes go up
+            with devrt.span("chain.upload_final"):
+                dev = state.upload_planes(f.sr_planes, f.bitdepth, device)
+        f._dev_planes = dev

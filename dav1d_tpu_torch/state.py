@@ -29,10 +29,9 @@ import functools
 import numpy as np
 import torch
 
-from dav1d_tpu.recon.cdef import _DIR_DX, _DIR_DY, UV_DIRS_420, UV_DIRS_422
-from dav1d_tpu.recon.lf import calc_eih
-
 from . import devrt
+from .recon.cdef import _DIR_DX, _DIR_DY, UV_DIRS_420, UV_DIRS_422
+from .recon.lf import calc_eih
 
 # cost divisors of the direction search (reference cdef_find_dir_c)
 CDEF_DIV = (840, 420, 280, 210, 168, 140, 120)

@@ -1,22 +1,28 @@
 """dav1d_tpu_torch end to end on the CPU: the port's decoder
-(device="cpu", so its filter chain runs the plain PyTorch versions of
-the kernels) against the JAX package, bit-exact.
+(device="cpu", so its MC and filter chain run the plain PyTorch versions
+of the kernels) against the JAX package, bit-exact.
 
 * the four tests/test_device_e2e.CASES streams (inter tools, film grain
   + restoration, 10-bit, super-res + restoration): the port's md5 equals
-  the JAX host tier's (DAV1D_TPU_DEVICE=0) and the JAX chain-on tier's
-  (DAV1D_TPU_DEVICE=1 with MC, itx and intra on the host);
-* the committed 10-bit smoke stream decodes to its committed md5;
+  the JAX host tier's (DAV1D_TPU_DEVICE=0), the JAX chain-on tier's
+  (DAV1D_TPU_DEVICE=1 with MC, itx and intra on the host) and the JAX
+  MC-on tier's (DAV1D_TPU_DEVICE=1 with itx and intra on the host);
+* the port's device MC stage predicted blocks (devrt.COUNTS, counted on
+  the CPU too) on the streams whose inter frames have blocks its
+  selection takes: kitchen, grain and hbd10.  superres_lr has none: with
+  super-res on every frame, each reference's upscaled width differs from
+  the coded width, so every reference counts as scaled;
+* the committed 10-bit smoke stream decodes to its committed md5, with
+  11 of its 12 inter blocks predicted by the MC stage;
 * in a subprocess, the port imports and decodes the committed 10-bit
   stream to its md5 and imports no jax: once with jax unimportable, and
   once with jax importable and the JAX package's dispatch reporting an
   accelerator, as on a GPU machine that has jax installed.
 
-The port owns every stage that the JAX package routes through its
-dispatch (dav1d_tpu.dispatch), so while the port decodes here that
-dispatch reports an accelerator and refuses to be consulted: a reused
-stage that asked it would fail the decode.  DAV1D_TPU_DEVICE* are unset
-meanwhile."""
+The port imports nothing of the JAX package (tests/test_torch_standalone
+.py), so while the port decodes here that package's dispatch reports an
+accelerator and refuses to be consulted: the decode must not reach it.
+DAV1D_TPU_DEVICE* are unset meanwhile."""
 
 import contextlib
 import hashlib
@@ -110,10 +116,15 @@ def _refusing_dispatch():
 
 
 def _port_md5(data):
-    from dav1d_tpu_torch.decoder import Decoder
+    """The port's (frames, md5) on the CPU; its devrt.COUNTS hold the
+    decode's block counts afterwards."""
+    from dav1d_tpu_torch import devrt
+    from dav1d_tpu_torch.decoder import Decoder, Settings
 
+    devrt.COUNTS.clear()
     with _device_env(), _refusing_dispatch() as asked:
-        got = _md5(Decoder(_settings(), device="cpu"), data)
+        got = _md5(Decoder(Settings(two_pass=True, max_frame_delay=4),
+                           device="cpu"), data)
     assert asked == [], f"the port consulted dav1d_tpu.dispatch: {asked}"
     return got
 
@@ -140,24 +151,80 @@ def _encode(name):
     return n, buf.getvalue()
 
 
+# streams whose inter frames hold blocks the device MC stage takes
+MC_CASES = ("grain", "hbd10", "kitchen")
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_port_matches_jax_tiers(name):
+    from dav1d_tpu_torch import devrt
+
     n, data = _encode(name)
     with _device_env(DAV1D_TPU_DEVICE="0"):
         host = _jax_md5(data)
     with _device_env(DAV1D_TPU_DEVICE="1", DAV1D_TPU_DEVICE_MC="0",
                      DAV1D_TPU_DEVICE_ITX="0", DAV1D_TPU_DEVICE_IPRED="0"):
         chain = _jax_md5(data)
+    with _device_env(DAV1D_TPU_DEVICE="1", DAV1D_TPU_DEVICE_MC="1",
+                     DAV1D_TPU_DEVICE_ITX="0", DAV1D_TPU_DEVICE_IPRED="0"):
+        mc = _jax_md5(data)
     port = _port_md5(data)
+    counts = dict(devrt.COUNTS)
     assert host[0] == n
     assert chain == host, f"{name}: JAX chain-on tier diverges"
+    assert mc == host, f"{name}: JAX MC-on tier diverges"
     assert port == host, f"{name}: port diverges from the JAX host tier"
+    assert 0 < counts["inter_blocks"]
+    if name in MC_CASES:
+        assert 0 < counts["mc_blocks"] <= counts["inter_blocks"], counts
+    else:
+        assert counts.get("mc_blocks", 0) == 0, counts
 
 
 def test_committed_stream_md5():
+    from dav1d_tpu_torch import devrt
+
     want = json.loads((DATA / "md5.json").read_text())["hbd10_128x96.ivf"]
     n, md5 = _port_md5((DATA / "hbd10_128x96.ivf").read_bytes())
     assert (n, md5) == (want["frames"], want["md5"])
+    # its two inter frames: 12 inter blocks, 11 of them plain
+    # translational single-reference blocks the MC stage predicts
+    assert dict(devrt.COUNTS) == {"inter_blocks": 12, "mc_blocks": 11}
+
+
+def test_import_state_continues_with_device_mc():
+    """A decoder seeded with export_state() bytes holds reference planes
+    but no resident copies of them: its device MC uploads the slots'
+    planes, and the decode goes on to the same pictures as one decoder
+    that saw the whole stream."""
+    from dav1d_tpu_torch import devrt
+    from dav1d_tpu_torch.decoder import Decoder, Settings
+
+    tus = [tu for tu, _ in read_ivf((DATA / "hbd10_128x96.ivf").read_bytes())]
+
+    def pictures(dec, units):
+        out = []
+        for tu in units:
+            dec.send_data(tu)
+            while (pic := dec.get_picture()) is not None:
+                out.append(hashlib.md5(b"".join(
+                    pic.plane_bytes(pl) for pl in range(len(pic.planes)))
+                ).hexdigest())
+        return out
+
+    def decoder():
+        return Decoder(Settings(two_pass=True, max_frame_delay=4),
+                       device="cpu")
+
+    whole = pictures(decoder(), tus)
+    first = decoder()
+    head = pictures(first, tus[:1])
+    second = decoder()
+    second.import_state(first.export_state())
+    devrt.COUNTS.clear()
+    tail = pictures(second, tus[1:])
+    assert head + tail == whole
+    assert devrt.COUNTS["mc_blocks"] > 0
 
 
 _NO_JAX = r"""
@@ -211,7 +278,8 @@ print(json.dumps({"frames": n, "md5": h.hexdigest(), "tried": tried,
 def test_port_runs_without_jax(mode):
     """The port decodes without touching jax: with jax unimportable, and
     with jax importable while the JAX package's dispatch reports an
-    accelerator (where its reused stages would pick jax device tiers)."""
+    accelerator (where a stage that consulted it would pick jax device
+    tiers)."""
     want = json.loads((DATA / "md5.json").read_text())["hbd10_128x96.ivf"]
     env = {k: v for k, v in os.environ.items() if k not in DEVICE_VARS}
     r = subprocess.run([sys.executable, "-c", _NO_JAX, str(REPO),
@@ -227,9 +295,9 @@ def test_cuda_device_without_cuda_raises():
     """No silent CPU run: asking for CUDA where there is none raises."""
     import torch
 
-    from dav1d_tpu_torch.decoder import Decoder
+    from dav1d_tpu_torch.decoder import Decoder, Settings
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Decoder(_settings())
+        Decoder(Settings(two_pass=True, max_frame_delay=4))

@@ -42,7 +42,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        n, _ = chip_smoke.decode(data, device, hashing=False)
+        n, _, _ = chip_smoke.decode(data, device, hashing=False)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     if len(sys.argv) > 1:
