@@ -22,24 +22,27 @@ Phases; any failure exits non-zero:
    three references with every block size the device-MC selection
    takes, windows inside, over every edge and beyond the reference's
    MC_PAD border, junk in the allocation rows and columns beyond the
-   coded size), bit depths 8/10/12;
+   coded size; itx job lists holding every valid (tx, txtp) pair with
+   random and extreme coefficients, shuffled, in an arena with gaps),
+   bit depths 8/10/12;
 4. decode the committed 1080p 8-bit inter stream (the main path) and the
    committed 10-bit stream with ``Decoder(..., device="cuda")`` through
    send_data/get_picture, and check the md5 of every output plane
    against the committed md5 (the JAX package's host tier).  The launch
    counts are zeroed just before the 1080p decode and read just after:
-   every filter-chain kernel must have launched at least once per frame
-   and the MC kernel at least once per inter frame; the share of inter
-   blocks the MC kernel predicted is printed;
+   every filter-chain kernel and the itx kernel must have launched at
+   least once per frame and the MC kernel at least once per inter frame;
+   the transform blocks of the itx kernel and the share of inter blocks
+   the MC kernel predicted are printed;
 5. time the 1080p decode (frames/s, best of 3 after the warm-up decode),
    then decode it once more with the stage spans and transfer counters
-   on, capturing the MC kernel's real per-frame calls: each is held
-   against the plain version (exact); time each kernel against its plain
-   version (CUDA events, in turns plain, kernel, kernel, plain): the
-   chain kernels on the 8-bit 1080p luma case of phase 3, MC on the
-   largest captured frame; and compute each kernel's bound, the least
-   time the card could take for the same inputs (bytes over 3.35 TB/s
-   or 32-bit operations over 67 Tops/s, whichever is larger).
+   on, capturing the MC and itx kernels' real per-frame calls: each is
+   held against the plain version (exact); time each kernel against its
+   plain version (CUDA events, in turns plain, kernel, kernel, plain):
+   the chain kernels on the 8-bit 1080p luma case of phase 3, MC and itx
+   on the largest captured frame; and compute each kernel's bound, the
+   least time the card could take for the same inputs (bytes over 3.35
+   TB/s or 32-bit operations over 67 Tops/s, whichever is larger).
 
 The line before the last is the kernels' JSON report; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -73,6 +76,8 @@ KERNELS = {
                     "dav1d_tpu/ops/pallas_cdef.py:200"),
     "mc": ("dav1d_tpu_torch/csrc/mc.cu",
            "dav1d_tpu/ops/pallas_mc.py:164"),
+    "itx": ("dav1d_tpu_torch/csrc/itx.cu",
+            "dav1d_tpu/ops/pallas_itx.py:106"),
 }
 
 # the card's peak rates for the bounds (H100 SXM data sheet, at 700 W):
@@ -243,6 +248,48 @@ def _mc_args(rng, device, bitdepth, shapes=SHAPES, n_refs=3, per=8):
             int(size.sum()), bitdepth)
 
 
+def _itx_args(rng, device, bitdepth, per=48):
+    """itx kernel arguments as a frame gives them: ``per`` blocks of
+    every valid (tx, txtp) pair, shuffled, in a coefficient arena with
+    gaps between blocks; coefficients random within +-(1 << (bd + 7))
+    (WHT_WHT, the lossless transform whose residuals are pixel
+    differences: +-(1 << (bd + 1))), a few blocks at the extremes, which
+    drive the row and column clips, and a DC-only block per pair."""
+    import numpy as np
+    import torch
+
+    from dav1d_tpu_torch.ops import itx as oitx
+
+    pairs = [(tx, tp) for tx in range(oitx.N_TX)
+             for tp in range(oitx.N_TXTP) if oitx.valid_pair(tx, tp)]
+    chunks, offs, txs, tps, eobs = [], [], [], [], []
+    pos = 0
+    for tx, txtp in pairs:
+        w, h, _, _ = oitx._txinfo(tx)
+        nc = min(w, 32) * min(h, 32)
+        cmax = 1 << (bitdepth + 1 if txtp == 16 else bitdepth + 7)
+        cf = rng.integers(-cmax, cmax, (per, nc)).astype(np.int32)
+        cf[0] = cmax - 1
+        cf[1] = -cmax
+        cf[2] = np.where(rng.random(nc) < 0.5, cmax - 1, -cmax)
+        cf[3, 1:] = 0
+        for row in cf:
+            gap = int(rng.integers(0, 5))
+            chunks += [np.zeros(gap, np.int32), row]
+            offs.append(pos + gap)
+            pos += gap + nc
+            txs.append(tx)
+            tps.append(txtp)
+            eobs.append(int(rng.integers(0, nc)))
+    perm = rng.permutation(len(offs))
+    arena = np.concatenate(chunks)
+    _, jobs, n_out = oitx.job_table(*(np.asarray(c)[perm]
+                                      for c in (offs, txs, tps, eobs)),
+                                    len(arena))
+    return (torch.from_numpy(arena).to(device),
+            torch.from_numpy(jobs).to(device), n_out, bitdepth)
+
+
 def make_cases(device, shapes=SHAPES, seed=0):
     """Kernel inputs at the main path's shapes for bit depths 8/10/12:
     {kernel: [(label, kernel_fn, plain_fn, args), ...]}."""
@@ -250,6 +297,7 @@ def make_cases(device, shapes=SHAPES, seed=0):
     import torch
 
     from dav1d_tpu_torch.ops import cdef as ocdef
+    from dav1d_tpu_torch.ops import itx as oitx
     from dav1d_tpu_torch.ops import lf as olf
     from dav1d_tpu_torch.ops import mc as omc
 
@@ -295,6 +343,9 @@ def make_cases(device, shapes=SHAPES, seed=0):
         cases["mc"].append((
             f"3 refs x 3 planes, all sizes bd{bd}", omc.put_8tap_resident,
             omc.put_8tap_resident_plain, _mc_args(rng, device, bd, shapes)))
+        cases["itx"].append((
+            f"194 pairs x 48 blocks bd{bd}", oitx.itx_frame,
+            oitx.itx_frame_plain, _itx_args(rng, device, bd)))
     return cases
 
 
@@ -376,10 +427,15 @@ def decode_checked(name, device):
 # ---- timing ------------------------------------------------------------
 
 def cuda_ms(fn, reps=20):
+    """ms per call of ``fn`` over ``reps`` calls after a warm-up call
+    (fewer calls for a function slower than 10 ms: at least 0.2 s of
+    timed calls)."""
     import torch
 
+    t = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    reps = max(1, min(reps, int(0.2 / max(time.perf_counter() - t, 1e-9))))
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -439,6 +495,88 @@ def _mc_footprint(coded, jobs):
     return total
 
 
+class _Ops:
+    """A lane that counts the operations done on it: the port's 1-D
+    transforms (recon/itx.py) are polymorphic over the lane container."""
+
+    n = 0
+
+    def _op(self, *_):
+        _Ops.n += 1
+        return self
+
+    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _op
+    __rshift__ = __neg__ = _op
+
+
+def _clip2(v):
+    _Ops.n += 2  # a min and a max
+    return v
+
+
+def _itx_1d_ops(lsz, kind):
+    """Operations of one 1-D transform of length 4 << lsz (clips count
+    2)."""
+    from dav1d_tpu_torch.recon.itx import _1D_FNS, wht4
+
+    lanes = [_Ops() for _ in range(4 << lsz)]
+    _Ops.n = 0
+    if kind == "wht":
+        wht4(lanes, 0, 1)
+    else:
+        _1D_FNS[(lsz, kind)](lanes, 0, 1, _clip2)
+    return _Ops.n
+
+
+def _itx_ops(tx, txtp, rows):
+    """Operations of one 2-D transform whose first ``rows`` rows hold a
+    nonzero coefficient (an all-zero row transforms to zero, so its row
+    transform is not work the data needs): the rect2 pre-scale (3 per
+    coefficient), the row transforms, the rounding shift and column clip
+    (4 per row element), the column transforms and the final (v+8)>>4
+    (2 per residual); WHT_WHT: cf>>2, four row and four column wht4."""
+    from dav1d_tpu_torch.levels import TxfmType
+    from dav1d_tpu_torch.ops.itx import _txinfo
+    from dav1d_tpu_torch.recon.itx import TX1D_TYPES
+
+    w, h, lw, lh = _txinfo(tx)
+    if txtp == TxfmType.WHT_WHT:
+        return 16 + 8 * _itx_1d_ops(0, "wht")
+    row_t, col_t = TX1D_TYPES[TxfmType(txtp)]
+    rect2 = 3 * min(w, 32) * min(h, 32) if abs(lw - lh) == 1 else 0
+    return (rect2 + rows * (_itx_1d_ops(lw, row_t) + 4 * w)
+            + w * _itx_1d_ops(lh, col_t) + 2 * h * w)
+
+
+def _itx_work(cf, jobs, n_out, bitdepth):
+    """(bytes, operations) of an itx call: the coefficients of every job
+    read, the job rows read, the residuals written; the operations of
+    :func:`_itx_ops` for each job's rows with a nonzero coefficient."""
+    import functools
+
+    import torch
+
+    from dav1d_tpu_torch.ops.itx import _txinfo
+
+    ops_of = functools.lru_cache(maxsize=None)(_itx_ops)
+    j = jobs.long()
+    n_coef = ops = 0
+    for tx in torch.unique(j[:, 1]).tolist():
+        g = j[j[:, 1] == tx]
+        w, h, _, _ = _txinfo(tx)
+        sw, sh = min(w, 32), min(h, 32)
+        n_coef += len(g) * sw * sh
+        coef = cf[g[:, 0, None] + torch.arange(sw * sh, device=cf.device)]
+        rows = (coef.reshape(len(g), sw, sh) != 0).any(1).sum(1)
+        pairs = torch.stack([g[:, 2], rows], 1)
+        uniq, cnt = torch.unique(pairs, dim=0, return_counts=True)
+        for (txtp, r), c in zip(uniq.tolist(), cnt.tolist()):
+            ops += c * ops_of(tx, txtp, r)
+    nbytes = (4 * n_coef + jobs.numel() * 4
+              + n_out * (2 if bitdepth <= 10 else 4))
+    return nbytes, ops
+
+
 def work(name, args):
     """(bytes, 32-bit operations) that the function needs on ``args``:
     each input byte read once and each output byte written once, and
@@ -477,6 +615,8 @@ def work(name, args):
         # 8 products (15 operations), each rounded (2) and clipped (2)
         ops = int(((h + 7) * w * 17 + h * w * 19).sum())
         return nbytes, ops
+    if name == "itx":
+        return _itx_work(*args)
     raise KeyError(name)
 
 
@@ -544,6 +684,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line:
             print("  ptxas:", line.strip(), flush=True)
 
+    # (ops/itx imports the port's recon/itx, which loads the native C:
+    # after its timed build above)
+    from dav1d_tpu_torch.ops import itx as oitx
+
     print("== 3. kernels vs plain versions on the card (exact)",
           flush=True)
     cases = make_cases(device)
@@ -558,7 +702,8 @@ def main() -> int:
     blocks = dict(devrt.COUNTS)
     print(f"  launches in the {MAIN_STREAM} decode: {launches}", flush=True)
     print(f"  MC kernel predicted {blocks.get('mc_blocks', 0)} of "
-          f"{blocks.get('inter_blocks', 0)} inter blocks", flush=True)
+          f"{blocks.get('inter_blocks', 0)} inter blocks; itx kernel "
+          f"transformed {blocks.get('itx_blocks', 0)} blocks", flush=True)
     for k, n in launches.items():
         want = ninter if k == "mc" else nframes
         _require(n >= want, f"{k}: {n} launches, want >= {want} "
@@ -570,9 +715,11 @@ def main() -> int:
     hbd = {k: devrt.LAUNCHES[k] for k in KERNELS}
     print(f"  launches in the {HBD_STREAM} decode: {hbd}; MC kernel "
           f"predicted {devrt.COUNTS['mc_blocks']} of "
-          f"{devrt.COUNTS['inter_blocks']} inter blocks", flush=True)
+          f"{devrt.COUNTS['inter_blocks']} inter blocks; itx kernel "
+          f"transformed {devrt.COUNTS['itx_blocks']} blocks", flush=True)
     _require(hbd["cdef_filter"] > 0, "10-bit decode ran no CDEF kernel")
     _require(hbd["mc"] > 0, "10-bit decode ran no MC kernel")
+    _require(hbd["itx"] > 0, "10-bit decode ran no itx kernel")
 
     print("== 5. timing", flush=True)
     runs = []
@@ -585,7 +732,7 @@ def main() -> int:
           f"warm-up decode; runs {[round(r, 3) for r in runs]}) on "
           f"{card}", flush=True)
     # one more decode with the stage spans and transfer counters on,
-    # capturing the MC kernel's calls
+    # capturing the MC and itx kernels' calls
     devrt.SPANS, devrt.XFER, devrt.SINK = {}, {"up": 0, "down": 0}, []
     t0 = time.perf_counter()
     n, _, _ = decode(data, device, hashing=False)
@@ -593,6 +740,7 @@ def main() -> int:
     spans, xfer = devrt.SPANS, devrt.XFER
     calls = [(_kernel_of(tag, args), args) for tag, _, args, _ in devrt.SINK]
     mc_calls = [args for name, args in calls if name == "mc"]
+    itx_calls = [args for name, args in calls if name == "itx"]
     devrt.SPANS = devrt.XFER = devrt.SINK = None
     stages = {k: round(v * 1e3 / n, 3) for k, v in sorted(spans.items())}
     print(f"  per frame: wall {wall * 1e3 / n:.3f} ms, stages (ms) "
@@ -614,11 +762,23 @@ def main() -> int:
         errs["mc"] = max(errs["mc"], e)
     _require(errs["mc"] == 0, "mc disagrees with its plain version on "
              "the decode's calls")
+    _require(len(itx_calls) == n, f"the traced decode made "
+             f"{len(itx_calls)} itx calls for {n} frames")
+    for i, args in enumerate(itx_calls):
+        e = _max_abs_err(oitx.itx_frame(*args), oitx.itx_frame_plain(*args))
+        print(f"  itx decode call {i}: {args[1].shape[0]} jobs, {args[2]} "
+              f"residuals, max_abs_err={e}", flush=True)
+        errs["itx"] = max(errs["itx"], e)
+    _require(errs["itx"] == 0, "itx disagrees with its plain version on "
+             "the decode's calls")
     timed = {name: items[0] for name, items in cases.items()}
     big = max(mc_calls, key=lambda a: a[3])
     timed["mc"] = (f"1080p inter frame of the decode ({big[2].shape[0]} "
                    f"jobs)", omc.put_8tap_resident,
                    omc.put_8tap_resident_plain, big)
+    big = max(itx_calls, key=lambda a: a[1].shape[0])
+    timed["itx"] = (f"1080p frame of the decode ({big[1].shape[0]} jobs)",
+                    oitx.itx_frame, oitx.itx_frame_plain, big)
     times = time_kernels(timed)
     kernels = []
     for name, (src, replaces) in KERNELS.items():

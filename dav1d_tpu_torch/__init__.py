@@ -15,14 +15,16 @@ Layout (counterparts in ``dav1d_tpu`` keep their module names):
 * ``decoder.Decoder`` — the public decoder (``send_data``/``get_picture``)
   taking ``device=``;
 * ``decode.frame`` — pass 1 and the finish (pass 2 + filter chain);
-* ``pipeline`` — the host-tier residual launch of pass 1 and pass 2,
-  with batched translational MC on the device (``ops.mc``) from the
-  reference planes that stay resident on it;
+* ``pipeline`` — the residual launch of pass 1 (every inverse transform
+  of a frame on the device, ``ops.itx``) and pass 2, with batched
+  translational MC on the device (``ops.mc``) from the reference planes
+  that stay resident on it;
 * ``recon.device_chain`` — deblock -> CDEF on resident device planes,
   then host super-res and ``recon.lr_apply`` (loop restoration);
 * ``recon.filmgrain`` — output-stage film grain (host);
-* ``ops.lf`` / ``ops.cdef`` / ``ops.mc`` — deblock, CDEF direction, CDEF
-  filter, MC: each a plain PyTorch function plus its CUDA kernel wrapper;
+* ``ops.lf`` / ``ops.cdef`` / ``ops.mc`` / ``ops.itx`` — deblock, CDEF
+  direction, CDEF filter, MC, inverse transforms: each a plain PyTorch
+  function plus its CUDA kernel wrapper;
 * ``kernels.build`` — nvcc build of ``csrc/*.cu`` and the ctypes loader;
 * ``devrt``, ``state`` — launch funnel, device-side constant tables.
 """

@@ -4,7 +4,8 @@ Behavioral parity with reference src/decode.c (dav1d_decode_frame_init
 :2750, init_cdf :3142, main :3196, dav1d_decode_frame :3285) — single
 threaded ("pass 0") path; the two-pass pipeline replaces the
 worker-thread scheduler with batched device stages: pass 1 is the
-native symbol decode with the host residual launch, the finish runs
+native symbol decode with the residual launch on ``f.device`` (one
+itx kernel a frame), the finish runs
 pass 2 (pipeline.run_pass2, with the batched MC on ``f.device``) and
 the in-loop filter chain (recon/device_chain.py: deblock and CDEF on
 ``f.device``, super-res and loop restoration on the host).
@@ -560,8 +561,9 @@ def decode_frame_pass1(f: FrameContext, tile_groups,
                        two_pass: bool = False) -> None:
     """Everything whose outputs the NEXT frame's pass 1 needs: the symbol
     decode (capture in two-pass mode, fused pixels otherwise), the CDF
-    refresh, segmap/refmvs state — plus the residual stage, which the
-    port runs on the host C tier.
+    refresh, segmap/refmvs state — plus the residual stage: every
+    inverse transform of the frame in one launch on ``f.device``
+    (pipeline._launch_residuals_native).
 
     Two-pass mode needs the native pass-1 decoder (native/): its capture
     arenas feed the residual launch and the native replay of pass 2.
@@ -660,8 +662,10 @@ def decode_frame_pass1(f: FrameContext, tile_groups,
         # record-free pass 2: the replay drivers walk the capture arenas
         # directly (pipeline.run_pass2)
         nat.finish_lr_units()
+        from .. import devrt
         from ..pipeline import _launch_residuals_native
-        f._launched = _launch_residuals_native(f)
+        with devrt.span("pass1.itx"):
+            f._launched = _launch_residuals_native(f)
 
     # CDF refresh is a pass-1 product (the next frame's in_cdf)
     if hdr.refresh_context:

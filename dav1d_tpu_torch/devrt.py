@@ -2,8 +2,8 @@
 
 Every device operation of the decoder goes through :func:`call`, every
 kernel launch through :func:`launch`, every upload through
-:func:`upload` and every download through :func:`fetch`, so a run can
-observe what went to the device:
+:func:`upload` and every download through :func:`fetch` or
+:func:`fetch_async`, so a run can observe what went to the device:
 
 * ``SINK``: when a list, ``call`` appends ``(tag, fn, args, kw)``;
 * ``XFER``: when a dict ``{"up": 0, "down": 0}``, uploads and downloads
@@ -14,8 +14,10 @@ observe what went to the device:
 * ``SPANS``: when a dict, :func:`span` adds the host wall seconds of
   each decode stage (pass1, pass2, chain and their parts) under its tag;
 * ``COUNTS``: work counted by the stages, always on: ``inter_blocks``
-  (inter blocks of the decoded frames) and ``mc_blocks`` (the blocks
-  whose predictions the batched MC stage computed on the device).
+  (inter blocks of the decoded frames), ``mc_blocks`` (the blocks
+  whose predictions the batched MC stage computed on the device) and
+  ``itx_blocks`` (the transform blocks whose residuals the itx stage
+  computed).
 """
 
 from __future__ import annotations
@@ -81,6 +83,30 @@ def fetch(x: torch.Tensor) -> np.ndarray:
     if XFER is not None:
         XFER["down"] += a.nbytes
     return a
+
+
+def fetch_async(x: torch.Tensor):
+    """Start the download of ``x`` into pinned host memory on the current
+    stream (transfer accounted); returns (host tensor, CUDA event), the
+    host tensor valid once :func:`wait` on the event returns.  A CPU
+    tensor is its own host copy (event None).  The counterpart of the
+    reference's ``copy_to_host_async`` (dav1d_tpu/pipeline.py:162-163)."""
+    if x.device.type == "cpu":
+        host, event = x, None
+    else:
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(x.device))
+    if XFER is not None:
+        XFER["down"] += host.numel() * host.element_size()
+    return host, event
+
+
+def wait(event) -> None:
+    """Block until the download started by :func:`fetch_async` is done."""
+    if event is not None:
+        event.synchronize()
 
 
 def narrow_cast(bitdepth: int):

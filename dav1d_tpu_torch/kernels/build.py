@@ -118,6 +118,8 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # table, jobs, n_jobs, n_pix, out, bitdepth, stream
     "dtpu_mc_put_8tap": [_P, _P, _I, _I, _P, _I, _P],
+    # cf, jobs, n_jobs, out, bitdepth, stream
+    "dtpu_itx_frame": [_P, _P, _I, _P, _I, _P],
 }
 
 

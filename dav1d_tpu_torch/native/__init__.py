@@ -17,9 +17,9 @@ from pathlib import Path
 
 _HERE = Path(__file__).parent
 _SRCS = [_HERE / "msac_coef.c", _HERE / "filters.c", _HERE / "lf.c",
-         _HERE / "refmvs.c", _HERE / "decode.c", _HERE / "itx.c",
+         _HERE / "refmvs.c", _HERE / "decode.c",
          _HERE / "replay.c", _HERE / "replay_inter.c", _HERE / "fg.c"]
-_HDRS = [_HERE / "dtpu.h", _HERE / "itx1d_gen.h", _HERE / "lf_core.h"]
+_HDRS = [_HERE / "dtpu.h", _HERE / "lf_core.h"]
 # the package's build directory (listed in .gitignore), beside the CUDA
 # kernels' library (kernels/build.py)
 _BUILD_DIR = _HERE.parent / "_build"
@@ -358,23 +358,6 @@ def _load():
     lib.dtpu_decode_tile_sbrow.restype = ctypes.c_int
     lib.dtpu_abi_sizes.argtypes = [ctypes.c_void_p]
     lib.dtpu_abi_sizes.restype = None
-
-    lib.dtpu_itx_batch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ci, ci,  # cf, nb, w, h
-        ci, ci, ci, ci, ci, ci,  # shift, row_t, col_t, rect2, bd, wht
-        ctypes.c_void_p]
-    lib.dtpu_itx_batch.restype = None
-    lib.dtpu_itx_batch_ptrs.argtypes = lib.dtpu_itx_batch.argtypes
-    lib.dtpu_itx_batch_ptrs.restype = None
-    lib.dtpu_itx_batch_ptrs_b.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ci, ci,  # cf, nb, w, h
-        ci, ci, ci, ci, ci, ci,  # shift, row_t, col_t, rect2, bd, wht
-        ctypes.c_void_p, ctypes.c_void_p,  # xb, yb (NULL = unknown)
-        ctypes.c_void_p]
-    lib.dtpu_itx_batch_ptrs_b.restype = None
-    lib.dtpu_itx_batch_ptrs_b16.argtypes = \
-        lib.dtpu_itx_batch_ptrs_b.argtypes
-    lib.dtpu_itx_batch_ptrs_b16.restype = None
 
     # pass-2 intra replay (replay.c); ctx struct lives in decode_glue
     lib.dtpu_intra_replay.argtypes = [

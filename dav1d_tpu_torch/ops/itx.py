@@ -1,12 +1,30 @@
-"""Host-tier inverse transforms for the port's pass 1 (counterpart of the
-host helpers in dav1d_tpu/ops/itx.py: _txinfo, scan_bounds_lut,
-itx_batch_c_ptrs).
+"""Every inverse transform of a frame on device tensors (counterpart of
+dav1d_tpu/ops/itx.py and ops/pallas_itx.py).
 
-The JAX module holds these beside its device programs and imports jax
-at its top, so the port carries the host helpers over: numpy plus the
-native C batch of the port's native/.  The device transform (TPU
-ops/itx._itx_core, Pallas ops/pallas_itx) is not ported yet: itx stays
-on this host tier.
+The reference's batched transform ``_itx_core`` (dav1d_tpu/ops/itx.py:
+106-165; reference src/itx_1d.c + src/itx_tmpl.c:44-121) per block:
+column-major coefficients ``[x][y]`` (sw = min(w, 32), sh = min(h, 32):
+64-point transforms are zero-extended from 32), the rect2 pre-scale
+``(c*181+128)>>8`` at a 2:1 aspect, the row 1-D transform with the row
+clip, ``cclip((x+rnd)>>TX_SHIFT[tx])``, the column 1-D transform with the
+column clip, ``(x+8)>>4``; WHT_WHT is ``cf>>2``, four ``wht4`` rows and
+four ``wht4`` columns, with no clip and no final shift.
+
+A frame's work is a flat job list over the frame's coefficient arena:
+one job is one transform block, a row of :func:`job_table`.  Its
+residuals are written row-major, h x w, at the job's offset into one flat
+output buffer: int16 at bit depths 8/10 (|residual| <= 8192) and int32 at
+12-bit (12-bit IDTX reaches 32768; dav1d_tpu/ops/itx.py:270-275).
+
+* :func:`itx_frame_plain` is the plain PyTorch version: ``_itx_core`` on
+  torch lanes per (tx, txtp) group, with the port's 1-D kernels
+  (recon/itx.py ``_1D_FNS``, polymorphic over the lane container), in
+  int32 at 8/10-bit and int64 at 12-bit, where the canonical rotations
+  overflow int32 (the reference's device tier uses int32 split forms
+  there, which are exact rewrites of the same values).
+* :func:`itx_frame` is the wrapper: the plain version for CPU tensors,
+  the CUDA kernel ``csrc/itx.cu`` for CUDA tensors (one launch for every
+  job of the frame, counted under the tag ``itx``).
 """
 
 from __future__ import annotations
@@ -14,11 +32,19 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
-from .. import tables
-from ..bufpool import take as _take
+from .. import devrt, tables
+from ..kernels import build
 from ..levels import TxfmType
-from ..recon.itx import TX1D_TYPES, TX_SHIFT
+from ..recon.itx import _1D_FNS, TX1D_TYPES, TX_SHIFT, wht4
+
+# columns of a job row (int32): coefficient offset into the arena, tx
+# size, tx type, offset of the residuals in the flat output
+J_CF, J_TX, J_TXTP, J_OUT = range(4)
+JOB_COLS = 4
+N_TX = 19
+N_TXTP = 17  # 16 types + WHT_WHT
 
 
 @functools.lru_cache(maxsize=None)
@@ -28,45 +54,170 @@ def _txinfo(tx):
             int(t_dim[3]))
 
 
-@functools.lru_cache(maxsize=None)
-def scan_bounds_lut(tx):
-    """Per-eob inclusive (x, y) bounds of the first eob+1 scan positions
-    of a TWO_D-class transform: cummax over the scan order decoded as
-    rc = (x << (min(lh,3)+2)) | y (recon/coef.py scan convention)."""
-    w, h, lw, lh = _txinfo(tx)
-    sh = min(h, 32)
-    scan = tables.scans()[tx].astype(np.int64)
-    xs = np.maximum.accumulate(scan >> (min(lh, 3) + 2))
-    ys = np.maximum.accumulate(scan & (sh - 1))
-    return xs.astype(np.uint8), ys.astype(np.uint8)
-
-
-def itx_batch_c_ptrs(ptrs, tx, txtp, bitdepth, eob=None):
-    """Native-C host batch over a uint64 pointer array of coefficient
-    blocks in the pass-1 capture arena (ops/itx.itx_batch_c_ptrs).
-    Residuals come back int16 for bitdepth <= 10 and int32 at 12-bit
-    (12-bit IDTX exceeds int16)."""
-    from ..native import lib as _nlib
-
-    n = len(ptrs)
-    w, h, lw, lh = _txinfo(tx)
-    i16 = bitdepth <= 10
-    fn = _nlib.dtpu_itx_batch_ptrs_b16 if i16 \
-        else _nlib.dtpu_itx_batch_ptrs_b
-    out = _take((n, h, w), np.int16 if i16 else np.int32)
+def valid_pair(tx: int, txtp: int) -> bool:
+    """Whether (tx, txtp) is a transform the codec has: ADST and FLIPADST
+    reach 16, IDENTITY 32 and only DCT 64; WHT_WHT is 4x4 only."""
     if txtp == TxfmType.WHT_WHT:
-        fn(ptrs.ctypes.data, n, 4, 4, 0, 0, 0, 0, bitdepth, 1, None, None,
-           out.ctypes.data)
-        return out
-    xb = yb = None
-    if eob is not None and tables.tx_type_class[txtp] == 0:
-        lx, ly = scan_bounds_lut(int(tx))
-        xb = np.ascontiguousarray(lx[eob])
-        yb = np.ascontiguousarray(ly[eob])
+        return tx == 0
+    w, h, lw, lh = _txinfo(tx)
     row_t, col_t = TX1D_TYPES[TxfmType(txtp)]
-    is_rect2 = int((w * 2 == h) or (h * 2 == w))
-    fn(ptrs.ctypes.data, n, w, h, int(TX_SHIFT[tx]), int(row_t),
-       int(col_t), is_rect2, int(bitdepth), 0,
-       xb.ctypes.data if xb is not None else None,
-       yb.ctypes.data if yb is not None else None, out.ctypes.data)
+    return (lw, row_t) in _1D_FNS and (lh, col_t) in _1D_FNS
+
+
+@functools.lru_cache(maxsize=None)
+def _luts():
+    """(valid (N_TX, N_TXTP) bool, h*w per tx, sw*sh per tx)."""
+    valid = np.array([[valid_pair(tx, tp) for tp in range(N_TXTP)]
+                      for tx in range(N_TX)])
+    hw = np.array([_txinfo(tx)[0] * _txinfo(tx)[1] for tx in range(N_TX)],
+                  dtype=np.int64)
+    nc = np.array([min(_txinfo(tx)[0], 32) * min(_txinfo(tx)[1], 32)
+                   for tx in range(N_TX)], dtype=np.int64)
+    return valid, hw, nc
+
+
+def out_dtype(bitdepth: int) -> torch.dtype:
+    return torch.int16 if bitdepth <= 10 else torch.int32
+
+
+def job_table(cf_off, tx, txtp, eob, n_cf):
+    """The job rows for :func:`itx_frame`, one per transform block given
+    by its coefficient offset into an ``n_cf``-word arena, tx size, tx type
+    and eob.  Jobs are sorted by (tx, txtp) and then eob, as the reference
+    groups them (dav1d_tpu/pipeline.py:105-113), so neighbouring jobs
+    take the same branches; each job's residuals follow the previous
+    job's in the output (a prefix sum of h*w).  Returns (order, jobs,
+    n_out): ``order`` maps job rows to the input rows, ``jobs`` is
+    (N, JOB_COLS) int32, ``n_out`` the number of residuals.  Raises on a
+    pair the codec does not have and on coefficients outside the arena."""
+    cf_off = np.asarray(cf_off, dtype=np.int64)
+    tx = np.asarray(tx, dtype=np.int64)
+    txtp = np.asarray(txtp, dtype=np.int64)
+    eob = np.asarray(eob, dtype=np.int64)
+    valid, hw, nc = _luts()
+    if len(tx) and (tx.min() < 0 or tx.max() >= N_TX or txtp.min() < 0
+                    or txtp.max() >= N_TXTP
+                    or not valid[tx, txtp].all()):
+        bad = [(int(a), int(b)) for a, b in zip(tx, txtp)
+               if not (0 <= a < N_TX and 0 <= b < N_TXTP and valid[a, b])]
+        raise ValueError(f"invalid (tx, txtp) pairs: {sorted(set(bad))}")
+    if len(tx) and (cf_off.min() < 0 or (cf_off + nc[tx]).max() > n_cf):
+        raise ValueError("job coefficients outside the arena")
+    key = (tx << 5 | txtp) << 11 | np.clip(eob, 0, 0x7FF)
+    order = np.argsort(key, kind="stable")
+    size = hw[tx[order]]
+    n_out = int(size.sum())
+    if n_out >= 1 << 31:
+        raise ValueError(f"{n_out} residuals exceed int32 offsets")
+    jobs = np.stack([cf_off[order], tx[order], txtp[order],
+                     np.cumsum(size) - size], axis=1).astype(np.int32)
+    return order, jobs, n_out
+
+
+def _itx_core(cf: torch.Tensor, tx: int, txtp: int,
+              bitdepth: int) -> torch.Tensor:
+    """(B, sw*sh) coefficients (int32, or int64 at 12-bit) -> (B, h*w)
+    residuals, row-major (dav1d_tpu/ops/itx.py _itx_core on torch
+    lanes).  ``cf`` is never written: the identity kernels update lanes
+    in place, so every lane is a view of a fresh tensor."""
+    w, h, lw, lh = _txinfo(tx)
+    sw, sh = min(w, 32), min(h, 32)
+    B = cf.shape[0]
+
+    if txtp == TxfmType.WHT_WHT:
+        grid = (cf >> 2).reshape(B, 4, 4)  # [x][y]
+        lanes = [grid[:, x, y] for y in range(4) for x in range(4)]
+        for y in range(4):
+            wht4(lanes, y * 4, 1)
+        for x in range(4):
+            wht4(lanes, x, 4)
+        return torch.stack(lanes, dim=1)
+
+    is_rect2 = (w * 2 == h) or (h * 2 == w)
+    shift = TX_SHIFT[tx]
+    rnd = (1 << shift) >> 1
+    if bitdepth == 8:
+        row_min = col_min = -(1 << 15)
+    else:
+        row_min = -(1 << (bitdepth + 7))
+        col_min = -(1 << (bitdepth + 5))
+    row_max, col_max = ~row_min, ~col_min
+
+    def rclip(v):
+        return torch.clamp(v, row_min, row_max)
+
+    def cclip(v):
+        return torch.clamp(v, col_min, col_max)
+
+    row_t, col_t = TX1D_TYPES[TxfmType(txtp)]
+    grid = cf.reshape(B, sw, sh)  # [x][y]
+    if is_rect2:
+        grid = (grid * 181 + 128) >> 8
+
+    # row pass: lanes indexed by x, each (B, sh); columns sw.. are zero
+    rows = cf.new_zeros((B, w, sh))
+    rows[:, :sw] = grid
+    lanes = list(rows.unbind(1))
+    _1D_FNS[(lw, row_t)](lanes, 0, 1, rclip)
+    lanes = [cclip((ln + rnd) >> shift) for ln in lanes]
+
+    # column pass: lanes indexed by y, each (B, w); rows sh.. are zero
+    cols = cf.new_zeros((B, h, w))
+    cols[:, :sh] = torch.stack(lanes, dim=2)
+    lanes = list(cols.unbind(1))
+    _1D_FNS[(lh, col_t)](lanes, 0, 1, cclip)
+    return (torch.stack(lanes, dim=1).reshape(B, h * w) + 8) >> 4
+
+
+def itx_frame_plain(cf: torch.Tensor, jobs: torch.Tensor, n_out: int,
+                    bitdepth: int) -> torch.Tensor:
+    """Every job of ``jobs`` (:func:`job_table` rows, int32) transformed
+    from the 1-D int32 coefficient arena ``cf``; returns the (n_out,)
+    residual buffer (:func:`out_dtype`) with every job's h x w block at
+    its offset."""
+    dt = torch.int64 if bitdepth == 12 else torch.int32
+    dev = cf.device
+    out = torch.zeros(n_out, dtype=out_dtype(bitdepth), device=dev)
+    key = jobs[:, J_TX].long() * 32 + jobs[:, J_TXTP].long()
+    for k in torch.unique(key).tolist():
+        g = jobs[key == k]
+        tx, txtp = k >> 5, k & 31
+        w, h, _, _ = _txinfo(tx)
+        nc = min(w, 32) * min(h, 32)
+        # the gather copies: the arena is never written
+        coef = cf[g[:, J_CF, None].long()
+                  + torch.arange(nc, device=dev)].to(dt)
+        res = _itx_core(coef, tx, txtp, bitdepth)
+        dst = g[:, J_OUT, None].long() + torch.arange(h * w, device=dev)
+        out[dst.reshape(-1)] = res.reshape(-1).to(out.dtype)
+    return out
+
+
+def itx_frame(cf: torch.Tensor, jobs: torch.Tensor, n_out: int,
+              bitdepth: int) -> torch.Tensor:
+    """The frame's inverse transforms (see :func:`itx_frame_plain`).
+    CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/itx.cu``: one launch for every job, whatever its size or type.
+    ``jobs`` must come from :func:`job_table`, which checks every pair
+    and every coefficient window."""
+    if bitdepth not in (8, 10, 12):
+        raise ValueError(f"bitdepth {bitdepth}")
+    build.check(cf, "cf")
+    if cf.dim() != 1:
+        raise ValueError(f"cf: shape {tuple(cf.shape)}, expected 1-D")
+    build.check(jobs, "jobs")
+    if jobs.dim() != 2 or jobs.shape[1] != JOB_COLS:
+        raise ValueError(f"jobs: shape {tuple(jobs.shape)}, expected "
+                         f"(N, {JOB_COLS})")
+    if not build.on_cuda(cf, jobs):
+        return itx_frame_plain(cf, jobs, n_out, bitdepth)
+    # zeroed like the plain version's (a job list from job_table writes
+    # every element)
+    out = torch.zeros(n_out, dtype=out_dtype(bitdepth), device=cf.device)
+    if jobs.shape[0] == 0:
+        return out
+    with torch.cuda.device(cf.device):
+        devrt.launch("itx", build.lib().dtpu_itx_frame, cf.data_ptr(),
+                     jobs.data_ptr(), int(jobs.shape[0]), out.data_ptr(),
+                     int(bitdepth), build.stream(cf))
     return out

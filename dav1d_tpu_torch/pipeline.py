@@ -3,10 +3,11 @@ dav1d_tpu/pipeline.py.
 
 Pass 1 (decode.frame with two_pass=True) runs the serial entropy decode
 and captures per-block mode info and dequantized coefficients in the
-native arenas; at its end every captured inverse transform is evaluated
-on the host C tier, batched per (tx size, tx type)
-(:func:`_launch_residuals_native`).  Pass 2 (:func:`run_pass2`) executes
-the pixel work:
+native arenas; at its end every captured inverse transform of the frame
+goes to the frame's device (``f.device``) in one kernel launch
+(:func:`_launch_residuals_native`, ops/itx.py, csrc/itx.cu), and the
+residuals start coming down.  Pass 2 (:func:`run_pass2`) collects them
+and executes the pixel work:
 
   1. batched translational MC on the frame's device (``f.device``): every
      plain single-reference inter block is predicted from the reference
@@ -28,8 +29,8 @@ import numpy as np
 
 from . import devrt, state
 from .decode.tile import TaskContext
+from .ops import itx as ditx
 from .ops import mc as dmc
-from .ops.itx import itx_batch_c_ptrs
 
 
 def _replay_one(t, rec) -> None:
@@ -53,66 +54,70 @@ def _replay_one(t, rec) -> None:
 
 
 class _NativeResiduals:
-    """Residual-batch state for the arena-driven (record-free) pass 2:
-    per-meta-row result pointers + keep-alive group results."""
+    """The frame's residuals for the arena-driven (record-free) pass 2:
+    one flat buffer holding every transform block's h x w residuals
+    (ops/itx.itx_frame, computed on ``f.device``), its pending download,
+    and the per-meta-row pointers into it that the native replay reads
+    (0 for rows without residuals)."""
 
-    __slots__ = ("ptrs", "elsz", "pending", "groups")
+    __slots__ = ("ptrs", "elsz", "pos", "jobs", "host", "event", "flat")
 
-    def __init__(self, n_meta):
+    def __init__(self, n_meta, elsz):
         self.ptrs = np.zeros(n_meta, dtype=np.uint64)
-        self.elsz = 4
-        self.pending = []  # (future, meta_idxs)
-        self.groups = []   # (meta_idxs, (n, h, w) result array)
-
-    def _register(self, idxs, out):
-        self.groups.append((idxs, out))
-        self.ptrs[idxs] = out.ctypes.data + \
-            np.arange(len(idxs), dtype=np.uint64) * out.strides[0]
+        self.elsz = elsz
+        self.pos = self.jobs = self.host = self.event = self.flat = None
 
     def collect(self):
-        for fut, idxs in self.pending:
-            resid = np.ascontiguousarray(devrt.fetch(fut)[: len(idxs)])
-            self._register(idxs, resid)
-        self.pending = []
+        """Wait for the download and point every block's meta row at its
+        residuals."""
+        if self.host is None:
+            return
+        devrt.wait(self.event)
+        self.flat = self.host.numpy()
+        m = np.flatnonzero(self.pos >= 0)
+        off = self.jobs[self.pos[m], ditx.J_OUT].astype(np.uint64)
+        self.ptrs[m] = np.uint64(self.flat.ctypes.data) + \
+            off * np.uint64(self.elsz)
 
     def resid_of_meta(self, m):
-        for idxs, out in self.groups:
-            j = np.flatnonzero(idxs == m)
-            if j.size:
-                return out[int(j[0])]
-        return None
+        """The (h, w) residual block of meta row ``m`` (after
+        :meth:`collect`), for the blocks pass 2 replays in Python."""
+        if self.flat is None or self.pos[m] < 0:
+            return None
+        _, tx, _, off = self.jobs[self.pos[m]]
+        w, h = ditx._txinfo(int(tx))[:2]
+        return self.flat[off:off + h * w].reshape(h, w)
 
 
 def _launch_residuals_native(f):
-    """Group every captured inverse transform per (tx size, tx type)
-    straight off the coefficient-meta arena and run each group through
-    the native batched itx via a pointer array into the cf arena."""
+    """The tail of pass 1: every captured inverse transform of the frame,
+    of every plane, in ONE launch on ``f.device``.  The coefficient arena
+    goes up once (its used prefix, int32: the arena returns to the pool
+    at frame finish, and a copy from pageable memory has read it when
+    ``upload`` returns), the job table (one row per meta row with
+    eob >= 0, sorted as the reference groups them) goes up, the itx
+    kernel runs, and the residuals start coming down; pass 2 collects
+    them.  Returns the frame's :class:`_NativeResiduals`."""
     glue = f._nat
     meta = glue.meta_rows()
-    st = _NativeResiduals(meta.shape[0])
-    if meta.shape[0] == 0:
-        return st
+    # residuals: int16 at bd <= 10, int32 at 12-bit (12-bit IDTX exceeds
+    # int16; dav1d_tpu/ops/itx.py:270-275)
+    st = _NativeResiduals(meta.shape[0], 2 if f.bitdepth <= 10 else 4)
     valid = np.flatnonzero(meta[:, 0] >= 0)
     if valid.size == 0:
         return st
-    key = (meta[valid, 2].astype(np.int64) >> 8 << 16) | meta[valid, 1]
-    # secondary sort by eob: clusters sparse blocks into the same
-    # 8-lane SIMD groups so the native itx's all-zero-row skip bites
-    # (groups still cut on the (tx, txtp) part of the key only)
-    eob = np.minimum(meta[valid, 0].astype(np.int64), 0x7FF)
-    order = np.argsort(key << 11 | eob, kind="stable")
-    sk = key[order]
-    cuts = np.flatnonzero(np.diff(sk)) + 1
-    cf_base = glue.cf_arena.ctypes.data
-    # host itx emits int16 residuals for bd <= 10; 12-bit IDTX needs int32
-    st.elsz = 2 if f.bitdepth <= 10 else 4
-    for idxs in np.split(valid[order], cuts):
-        m0 = meta[idxs[0]]
-        gtx, gtxtp = int(m0[2]) >> 8, int(m0[1])
-        ptrs = (cf_base +
-                meta[idxs, 5].astype(np.int64) * 4).astype(np.uint64)
-        st._register(idxs, itx_batch_c_ptrs(ptrs, gtx, gtxtp, f.bitdepth,
-                                            eob=meta[idxs, 0]))
+    n_cf = int(glue.c.cf_used)
+    order, jobs, n_out = ditx.job_table(
+        meta[valid, 5], meta[valid, 2] >> 8, meta[valid, 1], meta[valid, 0],
+        n_cf)
+    out = devrt.call("itx", ditx.itx_frame,
+                     devrt.upload(glue.cf_arena[:n_cf], f.device),
+                     devrt.upload(jobs, f.device), n_out, f.bitdepth)
+    st.host, st.event = devrt.fetch_async(out)
+    st.jobs = jobs
+    st.pos = np.full(meta.shape[0], -1, dtype=np.int64)
+    st.pos[valid[order]] = np.arange(len(order))
+    devrt.COUNTS["itx_blocks"] += len(order)
     return st
 
 
@@ -305,9 +310,14 @@ def run_pass2(f, st) -> None:
     glue = f._nat
     t = TaskContext(f)
     t.pass_ = 2
+    # the residuals came down while later frames ran pass 1
+    # (max_frame_delay): every replay below reads them, so the reference's
+    # host_tier=0 variant, which overlaps phase A with the device
+    # (dav1d_tpu/pipeline.py:574, :605-618), has nothing to hide here
+    with devrt.span("pass2.itx.collect"):
+        st.collect()
     n = int(glue.c.n_blocks)
     if n == 0:
-        st.collect()
         return
     rc = glue.build_replay_ctx(st.ptrs, st.elsz)
     ic = glue.build_inter_ctx()

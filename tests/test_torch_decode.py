@@ -1,19 +1,28 @@
 """dav1d_tpu_torch end to end on the CPU: the port's decoder
-(device="cpu", so its MC and filter chain run the plain PyTorch versions
-of the kernels) against the JAX package, bit-exact.
+(device="cpu", so its itx, MC and filter chain run the plain PyTorch
+versions of the kernels) against the JAX package, bit-exact.
 
 * the four tests/test_device_e2e.CASES streams (inter tools, film grain
   + restoration, 10-bit, super-res + restoration): the port's md5 equals
   the JAX host tier's (DAV1D_TPU_DEVICE=0), the JAX chain-on tier's
   (DAV1D_TPU_DEVICE=1 with MC, itx and intra on the host) and the JAX
-  MC-on tier's (DAV1D_TPU_DEVICE=1 with itx and intra on the host);
+  MC-on tier's (DAV1D_TPU_DEVICE=1 with itx and intra on the host); on
+  kitchen (8-bit) and hbd10 (10-bit) also the JAX itx-on tier's
+  (DAV1D_TPU_DEVICE=1 with MC and itx on the device, intra on the host).
+  That tier compiles one XLA program per (tx, txtp, batch bucket): ~100 s
+  for those two streams on the CPU, ~150 s for all four, so the other
+  two skip it;
+* the port's itx stage computed the residuals of every transform block
+  with coefficients (devrt.COUNTS["itx_blocks"] equals the valid rows of
+  each frame's coefficient meta arena, counted beside the stage);
 * the port's device MC stage predicted blocks (devrt.COUNTS, counted on
   the CPU too) on the streams whose inter frames have blocks its
   selection takes: kitchen, grain and hbd10.  superres_lr has none: with
   super-res on every frame, each reference's upscaled width differs from
   the coded width, so every reference counts as scaled;
 * the committed 10-bit smoke stream decodes to its committed md5, with
-  11 of its 12 inter blocks predicted by the MC stage;
+  164 transform blocks through the itx stage and 11 of its 12 inter
+  blocks predicted by the MC stage;
 * in a subprocess, the port imports and decodes the committed 10-bit
   stream to its md5 and imports no jax: once with jax unimportable, and
   once with jax importable and the JAX package's dispatch reporting an
@@ -115,17 +124,42 @@ def _refusing_dispatch():
         dispatch._platform, dispatch.use_device = saved
 
 
+@contextlib.contextmanager
+def _meta_rows_seen():
+    """Count, beside the port's itx stage, the rows with coefficients
+    (eob >= 0) of every frame's coefficient meta arena (yields a list
+    that holds the total afterwards)."""
+    from dav1d_tpu_torch import pipeline
+
+    seen = [0]
+    launch = pipeline._launch_residuals_native
+
+    def counting(f):
+        seen[0] += int((f._nat.meta_rows()[:, 0] >= 0).sum())
+        return launch(f)
+
+    pipeline._launch_residuals_native = counting
+    try:
+        yield seen
+    finally:
+        pipeline._launch_residuals_native = launch
+
+
 def _port_md5(data):
     """The port's (frames, md5) on the CPU; its devrt.COUNTS hold the
-    decode's block counts afterwards."""
+    decode's block counts afterwards, and every transform block with
+    coefficients went through the itx stage."""
     from dav1d_tpu_torch import devrt
     from dav1d_tpu_torch.decoder import Decoder, Settings
 
     devrt.COUNTS.clear()
-    with _device_env(), _refusing_dispatch() as asked:
+    with _device_env(), _refusing_dispatch() as asked, \
+            _meta_rows_seen() as seen:
         got = _md5(Decoder(Settings(two_pass=True, max_frame_delay=4),
                            device="cpu"), data)
     assert asked == [], f"the port consulted dav1d_tpu.dispatch: {asked}"
+    assert devrt.COUNTS["itx_blocks"] == seen[0] > 0, (
+        devrt.COUNTS["itx_blocks"], seen[0])
     return got
 
 
@@ -153,6 +187,9 @@ def _encode(name):
 
 # streams whose inter frames hold blocks the device MC stage takes
 MC_CASES = ("grain", "hbd10", "kitchen")
+# streams held against the JAX itx-on tier (one per bit depth; module
+# docstring)
+ITX_CASES = ("hbd10", "kitchen")
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -168,6 +205,11 @@ def test_port_matches_jax_tiers(name):
     with _device_env(DAV1D_TPU_DEVICE="1", DAV1D_TPU_DEVICE_MC="1",
                      DAV1D_TPU_DEVICE_ITX="0", DAV1D_TPU_DEVICE_IPRED="0"):
         mc = _jax_md5(data)
+    if name in ITX_CASES:
+        with _device_env(DAV1D_TPU_DEVICE="1", DAV1D_TPU_DEVICE_MC="1",
+                         DAV1D_TPU_DEVICE_ITX="1",
+                         DAV1D_TPU_DEVICE_IPRED="0"):
+            assert _jax_md5(data) == host, f"{name}: JAX itx-on tier diverges"
     port = _port_md5(data)
     counts = dict(devrt.COUNTS)
     assert host[0] == n
@@ -187,9 +229,11 @@ def test_committed_stream_md5():
     want = json.loads((DATA / "md5.json").read_text())["hbd10_128x96.ivf"]
     n, md5 = _port_md5((DATA / "hbd10_128x96.ivf").read_bytes())
     assert (n, md5) == (want["frames"], want["md5"])
-    # its two inter frames: 12 inter blocks, 11 of them plain
-    # translational single-reference blocks the MC stage predicts
-    assert dict(devrt.COUNTS) == {"inter_blocks": 12, "mc_blocks": 11}
+    # its 164 transform blocks with coefficients; its two inter frames:
+    # 12 inter blocks, 11 of them plain translational single-reference
+    # blocks the MC stage predicts
+    assert dict(devrt.COUNTS) == {"itx_blocks": 164, "inter_blocks": 12,
+                                  "mc_blocks": 11}
 
 
 def test_import_state_continues_with_device_mc():

@@ -4,7 +4,8 @@ Decodes the committed 1080p stream (dav1d_tpu_torch/data/) once to warm
 up, then once under torch.profiler (CPU + CUDA activity), and prints:
 
 * wall ms per frame of the profiled decode;
-* device time per kernel / memcpy name (self device time, summed);
+* device time per kernel / memcpy name (self device time, summed), per
+  frame and per call;
 * the device's busy share: summed device time over the decode's wall
   time (kernels and copies may overlap each other, so this is an upper
   bound of the busy share, and 1 minus it a lower bound of the idle
@@ -68,7 +69,7 @@ def main() -> int:
           f"ms/frame")
     for dev_us, count, key in rows[:25]:
         print(f"  {dev_us / n / 1e3:9.4f} ms/frame  {count:5d} calls  "
-              f"{key[:90]}")
+              f"{dev_us / count / 1e3:9.4f} ms/call  {key[:80]}")
     print(f"device time {total / n / 1e3:.4f} ms/frame; busy share <= "
           f"{total / wall_us:.4f} of the decode wall time")
     assert not chip_smoke._jax_modules()
