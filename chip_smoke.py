@@ -18,13 +18,17 @@ Phases; any failure exits non-zero:
    and, at the same time, the port's native C (cc, native/);
 3. hold each kernel against its plain PyTorch version on the card,
    exactly, at the decoder's 1080p shapes (4:2:0 luma and chroma planes,
-   random edge/unit maps with every class present; MC job lists over
+   random edge/unit maps with every class present; CDEF also on flat
+   planes with spikes, at mid range and up to 2^bd-1, where the [min,
+   max] clip bites next to the sentinel, and on a 4:2:2-shaped
+   1088x960 chroma plane with 4x8 units; MC job lists over
    three references with every block size the device-MC selection
    takes, windows inside, over every edge and beyond the reference's
    MC_PAD border, junk in the allocation rows and columns beyond the
-   coded size; itx job lists holding every valid (tx, txtp) pair with
-   random and extreme coefficients, shuffled, in an arena with gaps),
-   bit depths 8/10/12;
+   coded size, and one of only 128x128 luma and 4x4 chroma jobs (the
+   largest split into tiles, the smallest tiles); itx job lists holding
+   every valid (tx, txtp) pair with random and extreme coefficients,
+   shuffled, in an arena with gaps), bit depths 8/10/12;
 4. decode the committed 1080p 8-bit inter stream (the main path) and the
    committed 10-bit stream with ``Decoder(..., device="cuda")`` through
    send_data/get_picture, and check the md5 of every output plane
@@ -36,13 +40,20 @@ Phases; any failure exits non-zero:
    the MC kernel predicted are printed;
 5. time the 1080p decode (frames/s, best of 3 after the warm-up decode),
    then decode it once more with the stage spans and transfer counters
-   on, capturing the MC and itx kernels' real per-frame calls: each is
-   held against the plain version (exact); time each kernel against its
-   plain version (CUDA events, in turns plain, kernel, kernel, plain):
-   the chain kernels on the 8-bit 1080p luma case of phase 3, MC and itx
-   on the largest captured frame; and compute each kernel's bound, the
-   least time the card could take for the same inputs (bytes over 3.35
-   TB/s or 32-bit operations over 67 Tops/s, whichever is larger).
+   on, capturing the MC, CDEF filter and itx kernels' real calls: each
+   is held against the plain version (exact); time each kernel's wrapper
+   against its plain version (CUDA events, in turns plain, kernel,
+   kernel, plain): the deblock and direction kernels on the 8-bit 1080p
+   luma case of phase 3, the CDEF filter on the decode's largest luma
+   call, MC and itx on the largest captured frame; time the bare
+   launches of the C entry point on the same input, queued behind a spin
+   kernel so that the card runs them back to back (``launch_ms``: device
+   time, where the wrapper's ``ms`` also holds its host work); and
+   compute each kernel's bound, the least time the card could take for
+   the same inputs (bytes over 3.35 TB/s or 32-bit operations over 67
+   Tops/s, whichever is larger), and its share, bound over launch
+   time; time on the host what the MC tile list adds to the
+   ``pass2.mc.launch`` span on the decode's own job lists.
 
 The line before the last is the kernels' JSON report; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -127,14 +138,16 @@ def _plane(rng, H, W, bitdepth):
     return np.clip(base + noise + ramp, 0, maxp).astype(np.int32)
 
 
-def _spikes(rng, H, W, bitdepth):
+def _spikes(rng, H, W, bitdepth, top=False):
     """A flat plane with sparse small bright spikes: under strong CDEF
     strengths the filter overshoots and the [min, max] clip bites, also
-    next to the plane edge where sentinel taps must not lower the min."""
+    next to the plane edge where sentinel taps must not lower the min.
+    ``top``: the spikes at the largest pixel value, 2^bitdepth - 1."""
     import numpy as np
 
-    return ((128 + 4 * (rng.random((H, W)) < 0.1)) << (bitdepth - 8)) \
-        .astype(np.int32)
+    s = bitdepth - 8
+    base = (1 << bitdepth) - 1 - (4 << s) if top else 128 << s
+    return base + ((rng.random((H, W)) < 0.1).astype(np.int32) << (2 + s))
 
 
 def _cells(rng, H, W, luma, bitdepth):
@@ -187,13 +200,16 @@ SHAPES = {"luma": (1088, 1920, 1080, 1920),
           "chroma": (544, 960, 540, 960)}
 
 
-def _mc_args(rng, device, bitdepth, shapes=SHAPES, n_refs=3, per=8):
+def _mc_args(rng, device, bitdepth, shapes=SHAPES, n_refs=3, per=8,
+             blocks=None):
     """MC kernel arguments as a frame gives them: ``n_refs`` references
     of (luma, chroma, chroma) planes, allocation-sized with junk beyond
     the coded size; ``per`` jobs per (plane, block size) for every block
-    size the 4:2:0 selection takes, a third of them inside the plane, a
-    third over an edge, the rest anywhere up to 2*MC_PAD outside; filter
-    rows from the subpel table, identity rows and random signed taps."""
+    size the 4:2:0 selection takes (or, with ``blocks``, {plane kind:
+    (w, h)}, that one size per plane), a third of them inside the plane,
+    a third over an edge, the rest anywhere up to 2*MC_PAD outside;
+    filter rows from the subpel table, identity rows and random signed
+    taps."""
     import numpy as np
     import torch
 
@@ -214,9 +230,12 @@ def _mc_args(rng, device, bitdepth, shapes=SHAPES, n_refs=3, per=8):
     bdim = tables.block_dimensions[:22]
     subf = tables.mc_subpel_filters.astype(np.int32)
     cols = []
+    sizes = [(int(bw4) * 4, int(bh4) * 4)
+             for bw4, bh4 in bdim[(bdim[:, 0] > 1) & (bdim[:, 1] > 1), :2]]
     for e, (vh, vw) in enumerate(coded):
-        for bw4, bh4 in bdim[(bdim[:, 0] > 1) & (bdim[:, 1] > 1), :2]:
-            w, h = (int(bw4) * 4) >> sub[e], (int(bh4) * 4) >> sub[e]
+        for w, h in ([(w >> sub[e], h >> sub[e]) for w, h in sizes]
+                     if blocks is None else
+                     [blocks["chroma" if sub[e] else "luma"]]):
             dy = rng.integers(-h - 2 * MC_PAD, vh + 2 * MC_PAD, per)
             dx = rng.integers(-w - 2 * MC_PAD, vw + 2 * MC_PAD, per)
             q = per // 3
@@ -241,11 +260,13 @@ def _mc_args(rng, device, bitdepth, shapes=SHAPES, n_refs=3, per=8):
     # output: each job's block in a row of blocks 128 wide (stride 128)
     size = (128 * h)[order].astype(np.int64)
     off = np.cumsum(size) - size
-    jobs, n_pix = omc.job_table(e[order], dy[order], dx[order], w[order],
-                                h[order], off, 128, fh[order], fv[order],
-                                int(size.sum()))
-    return (planes, coded, torch.from_numpy(jobs).to(device), n_pix,
-            int(size.sum()), bitdepth)
+    jobs, tiles, n_pix = omc.job_table(e[order], dy[order], dx[order],
+                                       w[order], h[order], off, 128,
+                                       fh[order], fv[order],
+                                       int(size.sum()))
+    return (planes, coded, torch.from_numpy(jobs).to(device),
+            torch.from_numpy(tiles).to(device), n_pix, int(size.sum()),
+            bitdepth)
 
 
 def _itx_args(rng, device, bitdepth, per=48):
@@ -335,14 +356,35 @@ def make_cases(device, shapes=SHAPES, seed=0):
                      l422)))
             strong = [torch.full_like(pm, 15 << (bd - 8)),
                       torch.full_like(sm, 4 << (bd - 8))]
+            for top in (False, True):
+                cases["cdef_filter"].append((
+                    f"{plane_kind} spikes{' at 2^bd-1' if top else ''} "
+                    f"bd{bd}", ocdef.filter_plane, ocdef.filter_plane_plain,
+                    (dev(_spikes(rng, H, W, bd, top)), *strong, *dmaps, ph,
+                     pw, w, h, damping, bd, luma, False)))
+        # a 4:2:2 chroma plane (luma rows, chroma columns): 4x8 units,
+        # the luma direction maps
+        (H, _, ph, _), (_, W, _, pw) = shapes["luma"], shapes["chroma"]
+        pm, sm = (dev(m) for m in _units(rng, -(-ph // 8), -(-pw // 4), bd))
+        damping = 2 + int(rng.integers(0, 4)) + bd - 8
+        for label, plane, maps in (
+                ("", _plane(rng, H, W, bd), (pm, sm)),
+                (" spikes", _spikes(rng, H, W, bd),
+                 (torch.full_like(pm, 15 << (bd - 8)),
+                  torch.full_like(sm, 4 << (bd - 8))))):
             cases["cdef_filter"].append((
-                f"{plane_kind} spikes bd{bd}", ocdef.filter_plane,
+                f"chroma 4:2:2 4x8 units{label} bd{bd}", ocdef.filter_plane,
                 ocdef.filter_plane_plain,
-                (dev(_spikes(rng, H, W, bd)), *strong, *dmaps, ph, pw, w, h,
-                 damping, bd, luma, False)))
+                (dev(plane), *maps, *dmaps, ph, pw, 4, 8, damping, bd,
+                 False, True)))
         cases["mc"].append((
             f"3 refs x 3 planes, all sizes bd{bd}", omc.put_8tap_resident,
             omc.put_8tap_resident_plain, _mc_args(rng, device, bd, shapes)))
+        cases["mc"].append((
+            f"128x128 luma, 4x4 chroma only bd{bd}", omc.put_8tap_resident,
+            omc.put_8tap_resident_plain,
+            _mc_args(rng, device, bd, shapes, per=24,
+                     blocks={"luma": (128, 128), "chroma": (4, 4)})))
         cases["itx"].append((
             f"194 pairs x 48 blocks bd{bd}", oitx.itx_frame,
             oitx.itx_frame_plain, _itx_args(rng, device, bd)))
@@ -444,6 +486,81 @@ def cuda_ms(fn, reps=20):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def launch_ms(kfn, args, reps=20):
+    """Device ms per launch of the C entry point that ``kfn(*args)``
+    calls: one wrapper call captures the launch (``devrt.CAPTURE``),
+    then ``reps`` bare calls of the C entry point with those arguments
+    are queued behind a spin kernel (``torch.cuda._sleep``), so the card
+    runs them back to back whatever the host's cost per call; CUDA
+    events around them.  Returns (ms, host seconds of the ``reps`` calls,
+    to check they fit in the spin)."""
+    import torch
+
+    from dav1d_tpu_torch import devrt
+
+    devrt.CAPTURE = []
+    try:
+        result = kfn(*args)  # noqa: F841 (its output buffer stays alive)
+        captured = devrt.CAPTURE
+    finally:
+        devrt.CAPTURE = None
+    _require(len(captured) == 1, f"{len(captured)} launches captured")
+    _, cfn, cargs, _keep = captured[0]
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)  # ~5 ms at the H100's clock
+    t0.record()
+    h0 = time.perf_counter()
+    rcs = [cfn(*cargs) for _ in range(reps)]
+    host_s = time.perf_counter() - h0
+    t1.record()
+    torch.cuda.synchronize()
+    _require(not any(rcs), f"launch failed: {rcs}")
+    return t0.elapsed_time(t1) / reps, host_s
+
+
+def tile_list_host_ms(mc_calls, n_frames, reps=20):
+    """Host ms per decoded frame (``n_frames``, the unit of the stage
+    spans) that the MC tile list adds to the ``pass2.mc.launch`` span,
+    on the decode's own job lists (each the median of ``reps``): building
+    it (``ops.mc.tile_list``), and uploading the jobs
+    and tiles in one copy as the pipeline does, against the jobs alone
+    (each upload followed by a synchronize)."""
+    import numpy as np
+    import torch
+
+    from dav1d_tpu_torch import devrt
+    from dav1d_tpu_torch.ops import mc as omc
+
+    def median_ms(fn):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts)) * 1e3
+
+    def up(a, dev):
+        devrt.upload(a, dev)
+        torch.cuda.synchronize()
+
+    out = {"tile_list": 0.0, "upload_jobs_and_tiles": 0.0,
+           "upload_jobs": 0.0}
+    for args in mc_calls:
+        jobs, dev = args[2].cpu().numpy(), args[2].device
+        w, h = jobs[:, omc.J_W], jobs[:, omc.J_H]
+        tiles = omc.tile_list(w, h)
+        both = np.concatenate([jobs.ravel(), tiles.ravel()])
+        out["tile_list"] += median_ms(lambda: omc.tile_list(w, h))
+        out["upload_jobs_and_tiles"] += median_ms(lambda: up(both, dev))
+        out["upload_jobs"] += median_ms(lambda: up(jobs, dev))
+    out = {k: v / n_frames for k, v in out.items()}
+    out["added"] = (out["tile_list"] + out["upload_jobs_and_tiles"]
+                    - out["upload_jobs"])
+    return out
 
 
 def time_kernels(timed):
@@ -604,11 +721,12 @@ def work(name, args):
         # per filtered pixel: 12 taps, each a constrain (~8 operations)
         return nbytes, active * 100
     if name == "mc":
-        planes, coded, jobs, n_pix, n_out, bitdepth = args
+        planes, coded, jobs, _, n_pix, n_out, bitdepth = args
         j = jobs.long()
         w, h = j[:, 3], j[:, 4]
         # reads: the reference pixels under the clamped windows and the
-        # jobs; writes: the predicted pixels
+        # jobs; writes: the predicted pixels (the tiles are the kernel's
+        # schedule, not the function's input)
         nbytes = (4 * _mc_footprint(coded, jobs) + jobs.numel() * 4
                   + n_pix * (1 if bitdepth == 8 else 2))
         # separable 8-tap: (h+7)*w horizontal and h*w vertical sums of
@@ -686,6 +804,7 @@ def main() -> int:
 
     # (ops/itx imports the port's recon/itx, which loads the native C:
     # after its timed build above)
+    from dav1d_tpu_torch.ops import cdef as ocdef
     from dav1d_tpu_torch.ops import itx as oitx
 
     print("== 3. kernels vs plain versions on the card (exact)",
@@ -741,6 +860,7 @@ def main() -> int:
     calls = [(_kernel_of(tag, args), args) for tag, _, args, _ in devrt.SINK]
     mc_calls = [args for name, args in calls if name == "mc"]
     itx_calls = [args for name, args in calls if name == "itx"]
+    cdef_calls = [args for name, args in calls if name == "cdef_filter"]
     devrt.SPANS = devrt.XFER = devrt.SINK = None
     stages = {k: round(v * 1e3 / n, 3) for k, v in sorted(spans.items())}
     print(f"  per frame: wall {wall * 1e3 / n:.3f} ms, stages (ms) "
@@ -757,11 +877,33 @@ def main() -> int:
     for i, args in enumerate(mc_calls):
         e = _max_abs_err(omc.put_8tap_resident(*args),
                          omc.put_8tap_resident_plain(*args))
-        print(f"  mc decode call {i}: {args[2].shape[0]} jobs, {args[3]} "
+        print(f"  mc decode call {i}: {args[2].shape[0]} jobs, "
+              f"{args[3].shape[0]} tiles, {args[4]} "
               f"pixels, max_abs_err={e}", flush=True)
         errs["mc"] = max(errs["mc"], e)
     _require(errs["mc"] == 0, "mc disagrees with its plain version on "
              "the decode's calls")
+    tl_ms = tile_list_host_ms(mc_calls, n)
+    print(f"  mc tile list, host ms per frame (medians of 20): "
+          f"tile_list {tl_ms['tile_list']:.4f}, upload of jobs and tiles "
+          f"{tl_ms['upload_jobs_and_tiles']:.4f} against jobs alone "
+          f"{tl_ms['upload_jobs']:.4f}: {tl_ms['added']:.4f} added",
+          flush=True)
+    _require(len(cdef_calls) >= n, f"the traced decode made "
+             f"{len(cdef_calls)} cdef_filter calls for {n} frames")
+    for i, args in enumerate(cdef_calls):
+        e = _max_abs_err(ocdef.filter_plane(*args),
+                         ocdef.filter_plane_plain(*args))
+        pm, sm = args[1] > 0, args[2] > 0
+        print(f"  cdef_filter decode call {i}: "
+              f"{'luma' if args[11] else 'chroma'} {tuple(args[0].shape)}, "
+              f"units {args[7]}x{args[8]}: {int((pm & sm).sum())} both "
+              f"strengths, {int((pm & ~sm).sum())} primary only, "
+              f"{int((sm & ~pm).sum())} secondary only, {pm.numel()} in all; "
+              f"max_abs_err={e}", flush=True)
+        errs["cdef_filter"] = max(errs["cdef_filter"], e)
+    _require(errs["cdef_filter"] == 0, "cdef_filter disagrees with its "
+             "plain version on the decode's calls")
     _require(len(itx_calls) == n, f"the traced decode made "
              f"{len(itx_calls)} itx calls for {n} frames")
     for i, args in enumerate(itx_calls):
@@ -772,32 +914,41 @@ def main() -> int:
     _require(errs["itx"] == 0, "itx disagrees with its plain version on "
              "the decode's calls")
     timed = {name: items[0] for name, items in cases.items()}
-    big = max(mc_calls, key=lambda a: a[3])
+    big = max(mc_calls, key=lambda a: a[4])
     timed["mc"] = (f"1080p inter frame of the decode ({big[2].shape[0]} "
                    f"jobs)", omc.put_8tap_resident,
                    omc.put_8tap_resident_plain, big)
     big = max(itx_calls, key=lambda a: a[1].shape[0])
     timed["itx"] = (f"1080p frame of the decode ({big[1].shape[0]} jobs)",
                     oitx.itx_frame, oitx.itx_frame_plain, big)
+    big = max((a for a in cdef_calls if a[11]), key=lambda a: a[0].numel())
+    timed["cdef_filter"] = (
+        f"1080p luma call of the decode {tuple(big[0].shape)}",
+        ocdef.filter_plane, ocdef.filter_plane_plain, big)
     times = time_kernels(timed)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         ms, plain_ms, label = times[name]
+        l_ms, host_s = launch_ms(timed[name][1], timed[name][3])
         bound_ms, bound_by = bound(name, timed[name][3])
-        print(f"  {name:12s} {label}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-              flush=True)
+        print(f"  {name:12s} {label}: wrapper {ms:.4f} ms, launch "
+              f"{l_ms:.4f} ms (20 launches queued in {host_s * 1e3:.2f} "
+              f"ms of host time), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), share "
+              f"{bound_ms / l_ms:.3f}", flush=True)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None})
+                        "launch_ms": l_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "share": bound_ms / l_ms, "library_ms": None})
     _require(not _jax_modules(), f"jax was imported: {_jax_modules()}")
     print(json.dumps({"decode_fps": fps, "decode_fps_runs": runs,
                       "stage_ms_per_frame": stages, "stream": MAIN_STREAM,
                       "xfer_bytes_per_frame": {k: v // n
                                                for k, v in xfer.items()},
                       "bound_ms_per_frame": frame_bound,
+                      "mc_tile_list_host_ms_per_frame": tl_ms,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,10 @@ kernel launch through :func:`launch`, every upload through
 * ``LAUNCHES``: kernel launches per tag.  Only :func:`launch` adds to it,
   and it is called only where a CUDA kernel is launched — a plain
   PyTorch version run on the CPU never counts;
+* ``CAPTURE``: when a list, :func:`launch` appends ``(tag, cfn, args,
+  keep)``, so a caller can repeat the bare C call (``chip_smoke.py``
+  times launches that way; ``keep`` holds the device tensors the call
+  reads that the wrapper does not return);
 * ``SPANS``: when a dict, :func:`span` adds the host wall seconds of
   each decode stage (pass1, pass2, chain and their parts) under its tag;
 * ``COUNTS``: work counted by the stages, always on: ``inter_blocks``
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 SINK = None
+CAPTURE = None
 XFER = None
 SPANS = None
 LAUNCHES: collections.Counter = collections.Counter()
@@ -44,9 +49,13 @@ def call(tag, fn, *args, **kw):
     return fn(*args, **kw)
 
 
-def launch(tag, cfn, *args) -> None:
+def launch(tag, cfn, *args, keep=None) -> None:
     """Call the C entry point ``cfn`` of a CUDA kernel, raise on a nonzero
-    ``cudaError_t`` and count the launch under ``tag``."""
+    ``cudaError_t`` and count the launch under ``tag``.  ``keep``: the
+    wrapper's temporaries that ``args`` point into (kept alive with a
+    captured launch)."""
+    if CAPTURE is not None:
+        CAPTURE.append((tag, cfn, args, keep))
     rc = cfn(*args)
     if rc != 0:
         from .kernels.build import error_string

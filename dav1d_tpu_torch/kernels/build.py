@@ -113,11 +113,11 @@ _SIGNATURES = {
     # plane, H, W, bitdepth, bin_weights, dir, var, stream
     "dtpu_cdef_dir": [_P, _I, _I, _I, _P, _P, _P, _P],
     # src, dst, H, W, ph, pw, pm, sm, ncols, dmap, vmap, R8, W8, uw, uh,
-    # damping, bitdepth, luma, dir_dy, dir_dx, uv_dirs, stream
+    # damping, bitdepth, luma, layout_422, stream
     "dtpu_cdef_filter": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
-                         _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # table, jobs, n_jobs, n_pix, out, bitdepth, stream
-    "dtpu_mc_put_8tap": [_P, _P, _I, _I, _P, _I, _P],
+                         _I, _I, _I, _I, _I, _I, _I, _P],
+    # table, jobs, tiles, n_tiles, out, bitdepth, stream
+    "dtpu_mc_put_8tap": [_P, _P, _P, _I, _P, _I, _P],
     # cf, jobs, n_jobs, out, bitdepth, stream
     "dtpu_itx_frame": [_P, _P, _I, _P, _I, _P],
 }

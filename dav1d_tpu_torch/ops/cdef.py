@@ -9,8 +9,9 @@ Two operations, each a plain PyTorch version plus a CUDA kernel wrapper
   replacing ops/cdef._jit_find_dir_maps);
 * the CDEF filter of one plane with the unit parameters derived from the
   unit strength grids and the direction/variance maps
-  (:func:`filter_plane`; kernel ``csrc/cdef_filter.cu``, replacing
-  pallas_cdef._build with _jit_plane_resident's derivation).
+  (:func:`filter_plane`; kernel ``csrc/cdef_filter.cu`` with its
+  arithmetic in ``csrc/cdef_core.cuh``, replacing pallas_cdef._build with
+  _jit_plane_resident's derivation).
 
 Reference: src/cdef_tmpl.c:56-321, src/cdef_apply_tmpl.c.
 """
@@ -199,8 +200,11 @@ def filter_plane(plane, pm, sm, dmap, vmap, ph, pw, w, h, damping,
     pm / sm: (ceil(ph/h), ceil(pw/w)) int32 unit primary / secondary
     strength grids (:func:`host_maps`); dmap / vmap: the luma
     direction / variance maps (:func:`find_dir_maps`).  Pixels outside
-    (ph, pw) pass through.  CPU tensors run the plain version, CUDA
-    tensors launch ``csrc/cdef_filter.cu``."""
+    (ph, pw) pass through.  Units are 4 or 8 pixels on a side, and the
+    plane's pixels lie in [0, 2^bitdepth), as the codec's do (the kernel
+    takes the min of a pixel and its taps unsigned, to skip the padding
+    sentinel).  CPU tensors run the plain version, CUDA tensors launch
+    ``csrc/cdef_filter.cu``."""
     H, W = plane.shape
     nb, nc = -(-int(ph) // int(h)), -(-int(pw) // int(w))
     build.check(plane, "plane")
@@ -211,10 +215,11 @@ def filter_plane(plane, pm, sm, dmap, vmap, ph, pw, w, h, damping,
     _check_bitdepth(bitdepth)
     if not (0 < ph <= H and 0 < pw <= W):
         raise ValueError(f"filtered region {ph}x{pw} outside {H}x{W}")
+    if w not in (4, 8) or h not in (4, 8):
+        raise ValueError(f"unit {w}x{h}: sides must be 4 or 8")
     args = (ph, pw, w, h, damping, bitdepth, luma, layout_422)
     if not build.on_cuda(plane, pm, sm, dmap, vmap):
         return filter_plane_plain(plane, pm, sm, dmap, vmap, *args)
-    tb = state.tables(plane.device)
     out = torch.empty_like(plane)
     R8, W8 = dmap.shape
     with torch.cuda.device(plane.device):
@@ -223,9 +228,7 @@ def filter_plane(plane, pm, sm, dmap, vmap, ph, pw, w, h, damping,
                      int(pw), pm.data_ptr(), sm.data_ptr(), nc,
                      dmap.data_ptr(), vmap.data_ptr(), R8, W8, int(w),
                      int(h), int(damping), int(bitdepth), int(luma),
-                     tb.dir_dy.data_ptr(), tb.dir_dx.data_ptr(),
-                     tb.uv_dirs[int(layout_422)].data_ptr(),
-                     build.stream(plane))
+                     int(layout_422), build.stream(plane))
     return out
 
 

@@ -264,13 +264,17 @@ def _launch_mc_device(f, glue, n):
     shapes = [f.planes[pl].shape for pl in range(n_pl)]
     base = np.cumsum([0] + [h * w for h, w in shapes])
     stride = np.array([w for _, w in shapes], dtype=np.int64)[J["pl"]]
-    jobs, n_pix = dmc.job_table(
+    jobs, tiles, n_pix = dmc.job_table(
         J["entry"], J["dy"], J["dx"], J["w"], J["h"],
         base[J["pl"]] + J["dst_y"] * stride + J["dst_x"], stride, J["fh"],
         J["fv"], int(base[-1]))
+    # jobs and tiles go up in one copy
+    both = devrt.upload(np.concatenate([jobs.ravel(), tiles.ravel()]),
+                        f.device)
     out = devrt.call("mc", dmc.put_8tap_resident, planes, coded,
-                     devrt.upload(jobs, f.device), n_pix, int(base[-1]),
-                     f.bitdepth)
+                     both[:jobs.size].view(jobs.shape),
+                     both[jobs.size:].view(tiles.shape), n_pix,
+                     int(base[-1]), f.bitdepth)
 
     mc_st = _McDevice()
     mc_st.handled = np.zeros(n, dtype=np.uint8)

@@ -8,11 +8,23 @@
   without direction, empty bands, and a plane larger than its filtered
   region;
 * the port's cost-lattice bins and weights vs ops/cdef._cost_weights()
-  and recon/cdef._onehot_maps().
+  and recon/cdef._onehot_maps();
+* the filter kernel's own arithmetic, ``csrc/cdef_core.cuh`` built as
+  host C++ and run tile by tile, the CTA's 256 threads in turn per
+  phase, against the plain filter: units 8x8 (luma, 4:4:4 chroma), 4x4
+  (4:2:0) and 4x8 (4:2:2), filtered regions and planes that are not
+  multiples of the 16 x 64 tile (one of them not a multiple of 4 wide:
+  the scalar path), empty tiles, units beyond the direction maps, bit
+  depths 8/10/12, noise and spikes (at mid range and up to 2^bd - 1).
 
 The plain versions are what the wrappers run on CPU tensors; the CUDA
 kernels are compared with them on the card by chip_smoke.py.
 Tolerance: exact (integer codec)."""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,6 +37,8 @@ from dav1d_tpu.ops.pallas_cdef import cdef_filter_plane_resident
 from dav1d_tpu.recon.cdef import cdef_find_dir_batch_np
 from dav1d_tpu_torch import state
 from dav1d_tpu_torch.ops import cdef as tcdef
+
+CSRC = Path(tcdef.__file__).resolve().parent.parent / "csrc"
 
 
 def test_cost_weights_match_reference():
@@ -106,7 +120,7 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("content", ["noise", "spikes"])
+@pytest.mark.parametrize("content", ["noise", "spikes", "top"])
 @pytest.mark.parametrize("bitdepth", [8, 10, 12])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
 def test_plain_filter_matches_pallas_resident(case, bitdepth, content):
@@ -122,8 +136,10 @@ def test_plain_filter_matches_pallas_resident(case, bitdepth, content):
         plane = rng.integers(0, 1 << bitdepth, (H, W)).astype(np.int32)
         pri, sec = _units(rng, nb, nc, bitdepth)
     else:
-        plane = ((128 + 4 * (rng.random((H, W)) < 0.1)) << s) \
-            .astype(np.int32)
+        base = (1 << bitdepth) - 1 - (4 << s) if content == "top" \
+            else 128 << s
+        plane = base + ((rng.random((H, W)) < 0.1).astype(np.int32)
+                        << (2 + s))
         pri = np.full((nb, nc), 15 << s, np.int64)
         sec = np.full((nb, nc), 4 << s, np.int64)
     uys, uxs = np.nonzero((pri | sec) != 0)
@@ -185,7 +201,127 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):  # map shape does not match the units
         tcdef.filter_plane(p, m[:1], m, m, m, 16, 16, 8, 8, 5, 8, True,
                            False)
+    m1 = m[:, :1].contiguous()  # the grid of 8x16 units
+    with pytest.raises(ValueError, match="unit 16x8"):
+        tcdef.filter_plane(p, m1, m1, m, m, 16, 16, 16, 8, 5, 8, True,
+                           False)
     with pytest.raises(ValueError):
         tcdef.filter_plane(p.to("meta"), m.to("meta"), m.to("meta"),
                            m.to("meta"), m.to("meta"), 16, 16, 8, 8, 5, 8,
                            True, False)
+
+
+_HARNESS = r"""
+#include "cdef_core.cuh"
+
+extern "C" void cdef_host(const int* src, int* dst, int H, int W, int ph,
+                          int pw, const int* pm, const int* sm, int ncols,
+                          const int* dmap, const int* vmap, int R8, int W8,
+                          int lw, int lh, int damping, int bitdepth,
+                          int luma, int l422, int vec) {
+    const cdef::Plane p{src, dst, H, W, ph, pw, pm, sm,
+                        (ph + (1 << lh) - 1) >> lh, ncols, dmap, vmap, R8,
+                        W8, lw, lh, damping, bitdepth - 8, luma, l422, vec};
+    static cdef::Tile s;
+    const int nt = 256;  // the kernel's CTA; each loop is one phase
+    for (int y0 = 0; y0 < H; y0 += cdef::TILE_H)
+        for (int x0 = 0; x0 < W; x0 += cdef::TILE_W) {
+            if (y0 < ph && x0 < pw) {
+                bool any = false;  // the kernel's __syncthreads_or
+                for (int t = 0; t < nt; t++) {
+                    any |= cdef::units(s, p, y0, x0, t, nt);
+                    cdef::stage(s, p, y0, x0, t, nt);
+                }
+                if (any) {
+                    for (int t = 0; t < nt; t++)
+                        cdef::filter(s, p, y0, x0, t, nt);
+                    continue;
+                }
+            }
+            for (int t = 0; t < nt; t++) cdef::copy(p, y0, x0, t, nt);
+        }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def kernel_on_host(tmp_path_factory):
+    """The filter kernel's arithmetic header built as host C++ (a ctypes
+    function running every tile's phases for 256 threads in turn)."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no C++ compiler")
+    d = tmp_path_factory.mktemp("cdef_host")
+    (d / "harness.cpp").write_text(_HARNESS)
+    so = d / "libcdef_host.so"
+    r = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+                        "-I", str(CSRC), "-o", str(so),
+                        str(d / "harness.cpp")],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.cdef_host.argtypes = [P, P, I, I, I, I, P, P, I, P, P, I, I, I, I,
+                              I, I, I, I, I]
+    lib.cdef_host.restype = None
+    return lib
+
+
+HOST_CASES = [
+    # (luma, layout_422, w, h, ph, pw, H, W): planes not a multiple of
+    # the 16 x 64 tile; the first region ends on a tile edge, where the
+    # halo beyond it must read the sentinel
+    (True, False, 8, 8, 32, 64, 40, 72),
+    (True, False, 8, 8, 37, 131, 40, 136),
+    (False, False, 8, 8, 40, 72, 44, 80),     # 4:4:4 chroma
+    (False, False, 4, 4, 18, 66, 20, 70),     # 4:2:0, W % 4 != 0
+    (False, True, 4, 8, 36, 66, 40, 68),      # 4:2:2
+]
+
+
+@pytest.mark.parametrize("content", ["noise", "spikes", "top"])
+@pytest.mark.parametrize("bitdepth", [8, 10, 12])
+@pytest.mark.parametrize("case", HOST_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_kernel_source_on_host(kernel_on_host, case, bitdepth, content):
+    """cdef_core.cuh's phases equal the plain filter exactly.  The unit
+    maps leave one band of tiles without an active unit and stop short of
+    the last unit row and column (units beyond them read dir = var = 0);
+    spikes: strongest strengths on a flat plane with bright pixels, where
+    the [min, max] clip bites next to the sentinel; top: the same with
+    the spikes at the largest pixel value, 2^bitdepth - 1."""
+    luma, l422, w, h, ph, pw, H, W = case
+    rng = np.random.default_rng(bitdepth * 7 + ph + w + len(content))
+    nb, nc = -(-ph // h), -(-pw // w)
+    s = bitdepth - 8
+    if content == "noise":
+        plane = rng.integers(0, 1 << bitdepth, (H, W)).astype(np.int32)
+        pri, sec = _units(rng, nb, nc, bitdepth)
+    else:
+        base = (1 << bitdepth) - 1 - (4 << s) if content == "top" \
+            else 128 << s
+        plane = base + ((rng.random((H, W)) < 0.1).astype(np.int32)
+                        << (2 + s))
+        pri = np.full((nb, nc), 15 << s, np.int64)
+        sec = np.full((nb, nc), 4 << s, np.int64)
+    band = 16 // h  # unit rows of the second tile row: none active
+    pri[band:2 * band] = sec[band:2 * band] = 0
+    pm = torch.from_numpy(pri.astype(np.int32))
+    sm = torch.from_numpy(sec.astype(np.int32))
+    dmap = rng.integers(0, 8, (nb - 1, nc - 1)).astype(np.int32)
+    vmap = rng.integers(0, 1 << 12, dmap.shape).astype(np.int32)
+    vmap[rng.random(dmap.shape) < 0.2] = 0
+    damping = 3 + int(rng.integers(0, 4)) + s - (not luma)
+    want = tcdef.filter_plane_plain(
+        torch.from_numpy(plane), pm, sm, torch.from_numpy(dmap),
+        torch.from_numpy(vmap), ph, pw, w, h, damping, bitdepth, luma,
+        l422).numpy()
+    got = np.full_like(plane, -1)
+    kernel_on_host.cdef_host(
+        plane.ctypes.data, got.ctypes.data, H, W, ph, pw,
+        pm.numpy().ctypes.data, sm.numpy().ctypes.data, nc,
+        dmap.ctypes.data, vmap.ctypes.data, *dmap.shape, w.bit_length() - 1,
+        h.bit_length() - 1, damping, bitdepth, luma, l422, W % 4 == 0)
+    assert np.array_equal(got, want), \
+        f"mismatch at {np.argwhere(got != want)[:4]}"
+    assert not np.array_equal(want[:ph, :pw], plane[:ph, :pw])
