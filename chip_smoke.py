@@ -15,7 +15,9 @@ Phases; any failure exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the port's kernels from csrc/ (one nvcc per source, sm_90a)
-   and, at the same time, the port's native C (cc, native/);
+   and, at the same time, the port's native C (cc, native/); print
+   ptxas's registers and spills and the itx kernel's registers, shared
+   memory and resident CTAs per SM at 8/10 and 12-bit;
 3. hold each kernel against its plain PyTorch version on the card,
    exactly, at the decoder's 1080p shapes (4:2:0 luma and chroma planes,
    random edge/unit maps with every class present; CDEF also on flat
@@ -28,24 +30,32 @@ Phases; any failure exits non-zero:
    coded size, and one of only 128x128 luma and 4x4 chroma jobs (the
    largest split into tiles, the smallest tiles); itx job lists holding
    every valid (tx, txtp) pair with random and extreme coefficients,
-   shuffled, in an arena with gaps), bit depths 8/10/12;
+   shuffled, in an arena with gaps, and sparse ones: zero rows between
+   nonzero rows, a lone coefficient in the last column of the last
+   coded row, DC only, partly full groups; the direction search also on
+   a plane of blocks whose costs tie), bit depths 8/10/12;
 4. decode the committed 1080p 8-bit inter stream (the main path) and the
    committed 10-bit stream with ``Decoder(..., device="cuda")`` through
    send_data/get_picture, and check the md5 of every output plane
    against the committed md5 (the JAX package's host tier).  The launch
    counts are zeroed just before the 1080p decode and read just after:
-   every filter-chain kernel and the itx kernel must have launched at
-   least once per frame and the MC kernel at least once per inter frame;
+   every filter-chain kernel must have launched at least once per
+   frame, the itx and direction kernels exactly once per frame and the
+   MC kernel at least once per inter frame;
    the transform blocks of the itx kernel and the share of inter blocks
    the MC kernel predicted are printed;
 5. time the 1080p decode (frames/s, best of 3 after the warm-up decode),
    then decode it once more with the stage spans and transfer counters
    on, capturing the MC, CDEF filter and itx kernels' real calls: each
-   is held against the plain version (exact); time each kernel's wrapper
+   is held against the plain version (exact), and each itx call's jobs
+   by tx size, nonzero coefficients and rows are printed; time each
+   kernel's wrapper
    against its plain version (CUDA events, in turns plain, kernel,
    kernel, plain): the deblock and direction kernels on the 8-bit 1080p
    luma case of phase 3, the CDEF filter on the decode's largest luma
-   call, MC and itx on the largest captured frame; time the bare
+   call, MC on the largest captured frame, itx on two calls (the one
+   with the most jobs, the key frame's, and the inter call with the
+   most 64x64 jobs); time the bare
    launches of the C entry point on the same input, queued behind a spin
    kernel so that the card runs them back to back (``launch_ms``: device
    time, where the wrapper's ``ms`` also holds its host work); and
@@ -302,13 +312,107 @@ def _itx_args(rng, device, bitdepth, per=48):
             txs.append(tx)
             tps.append(txtp)
             eobs.append(int(rng.integers(0, nc)))
-    perm = rng.permutation(len(offs))
+    return _itx_table(device, bitdepth, chunks, offs, txs, tps, eobs,
+                      rng.permutation(len(offs)))
+
+
+def _itx_table(device, bitdepth, chunks, offs, txs, tps, eobs, perm):
+    """itx kernel arguments from the blocks ``chunks`` (gaps and
+    coefficient windows) taken in the order ``perm``."""
+    import numpy as np
+    import torch
+
+    from dav1d_tpu_torch.ops import itx as oitx
+
     arena = np.concatenate(chunks)
-    _, jobs, n_out = oitx.job_table(*(np.asarray(c)[perm]
-                                      for c in (offs, txs, tps, eobs)),
-                                    len(arena))
+    _, jobs, groups, n_out = oitx.job_table(
+        *(np.asarray(c)[perm] for c in (offs, txs, tps, eobs)), len(arena))
     return (torch.from_numpy(arena).to(device),
-            torch.from_numpy(jobs).to(device), n_out, bitdepth)
+            torch.from_numpy(jobs).to(device),
+            torch.from_numpy(groups).to(device), n_out, bitdepth)
+
+
+def _itx_plain(cf, jobs, groups, n_out, bitdepth):
+    """The plain itx version on the wrapper's arguments (the groups are
+    the kernel's schedule, not an input of the function)."""
+    from dav1d_tpu_torch.ops import itx as oitx
+
+    return oitx.itx_frame_plain(cf, jobs, n_out, bitdepth)
+
+
+def _itx_sparse_args(rng, device, bitdepth, per=11):
+    """itx kernel arguments of sparse blocks, ``per`` of each pattern
+    for every valid (tx, txtp) pair: nonzero rows 0, sh/3 and sh-1 with
+    zero rows between them; a lone coefficient in the last column of the
+    last coded row; DC only; one nonzero row in the middle, its first
+    column zero.  ``per`` is no multiple of a group's job count, so the
+    last group of each tx size is partly full and ends where the size
+    changes."""
+    import numpy as np
+
+    from dav1d_tpu_torch.ops import itx as oitx
+
+    chunks, offs, txs, tps, eobs = [], [], [], [], []
+    pos = 0
+    for tx in range(oitx.N_TX):
+        for txtp in range(oitx.N_TXTP):
+            if not oitx.valid_pair(tx, txtp):
+                continue
+            w, h, _, _ = oitx._txinfo(tx)
+            sw, sh = min(w, 32), min(h, 32)
+            cmax = 1 << (bitdepth + 1 if txtp == 16 else bitdepth + 7)
+            for pat in range(4):
+                cf = np.zeros((per, sw, sh), np.int64)  # [x][y]
+                vals = rng.integers(1, cmax, (per, sw, sh)) * \
+                    rng.choice([-1, 1], (per, sw, sh))
+                if pat == 0:
+                    rows = [0, max(1, sh // 3), sh - 1]
+                    cf[:, :, rows] = vals[:, :, rows]
+                elif pat == 1:
+                    cf[:, sw - 1, sh - 1] = vals[:, 0, 0]
+                elif pat == 2:
+                    cf[:, 0, 0] = vals[:, 0, 0]
+                else:
+                    y = sh // 2
+                    cf[:, 1:, y] = vals[:, 1:, y]
+                for row in cf.reshape(per, -1).astype(np.int32):
+                    gap = int(rng.integers(0, 5))
+                    chunks += [np.zeros(gap, np.int32), row]
+                    offs.append(pos + gap)
+                    pos += gap + len(row)
+                    txs.append(tx)
+                    tps.append(txtp)
+                    eobs.append(int(np.flatnonzero(row).max(initial=0)))
+    return _itx_table(device, bitdepth, chunks, offs, txs, tps, eobs,
+                      rng.permutation(len(offs)))
+
+
+def _dir_ties(rng, H, W, bitdepth):
+    """A plane of 8x8 blocks whose direction costs tie: flat blocks
+    (at mid grey every cost is 0), blocks at 0 and at 2^bd - 1, and
+    transpose-symmetric blocks (f(y) + f(x), g(y + x), max(f(y), f(x)):
+    the costs of hv0 and hv1, alt0 and alt3, alt1 and alt2 tie, so the
+    first maximum must win), with 0 / 2^bd - 1 checkerboards, the
+    largest partial sums."""
+    import numpy as np
+
+    hi = (1 << bitdepth) - 1
+    nby, nbx = -(-H // 8), -(-W // 8)
+    n = nby * nbx
+    yy, xx = np.mgrid[0:8, 0:8]
+    f = rng.integers(0, hi + 1, (n, 8))
+    g = rng.integers(0, hi + 1, (n, 15))
+    lvl = rng.integers(0, hi + 1, n)[:, None, None]
+    kinds = np.stack([
+        (f[:, yy] + f[:, xx]) // 2, g[:, yy + xx],
+        np.maximum(f[:, yy], f[:, xx]),
+        np.broadcast_to(lvl, (n, 8, 8)),
+        np.full((n, 8, 8), 128 << (bitdepth - 8)),
+        np.zeros((n, 8, 8), np.int64), np.full((n, 8, 8), hi),
+        np.broadcast_to(((yy + xx) % 2) * hi, (n, 8, 8))])
+    b = kinds[rng.integers(0, len(kinds), n), np.arange(n)]
+    plane = b.reshape(nby, nbx, 8, 8).transpose(0, 2, 1, 3)
+    return plane.reshape(nby * 8, nbx * 8)[:H, :W].astype(np.int32)
 
 
 def make_cases(device, shapes=SHAPES, seed=0):
@@ -343,6 +447,10 @@ def make_cases(device, shapes=SHAPES, seed=0):
                 cases["cdef_dir"].append((
                     f"{plane_kind} bd{bd}", ocdef.find_dir_maps,
                     ocdef.find_dir_maps_plain, (plane, bd)))
+                cases["cdef_dir"].append((
+                    f"{plane_kind} ties bd{bd}", ocdef.find_dir_maps,
+                    ocdef.find_dir_maps_plain,
+                    (dev(_dir_ties(rng, H, W, bd)), bd)))
                 dmaps = ocdef.find_dir_maps_plain(plane, bd)
             w = h = 8 if luma else 4
             pm, sm = (dev(m) for m in _units(rng, -(-ph // h), -(-pw // w),
@@ -387,7 +495,10 @@ def make_cases(device, shapes=SHAPES, seed=0):
                      blocks={"luma": (128, 128), "chroma": (4, 4)})))
         cases["itx"].append((
             f"194 pairs x 48 blocks bd{bd}", oitx.itx_frame,
-            oitx.itx_frame_plain, _itx_args(rng, device, bd)))
+            _itx_plain, _itx_args(rng, device, bd)))
+        cases["itx"].append((
+            f"194 pairs x 44 sparse bd{bd}", oitx.itx_frame,
+            _itx_plain, _itx_sparse_args(rng, device, bd)))
     return cases
 
 
@@ -665,9 +776,10 @@ def _itx_ops(tx, txtp, rows):
             + w * _itx_1d_ops(lh, col_t) + 2 * h * w)
 
 
-def _itx_work(cf, jobs, n_out, bitdepth):
+def _itx_work(cf, jobs, groups, n_out, bitdepth):
     """(bytes, operations) of an itx call: the coefficients of every job
-    read, the job rows read, the residuals written; the operations of
+    read, the job rows read, the residuals written (the groups are the
+    kernel's schedule, not the function's input); the operations of
     :func:`_itx_ops` for each job's rows with a nonzero coefficient."""
     import functools
 
@@ -748,6 +860,47 @@ def bound(name, args):
         "operations"
 
 
+def itx_call_stats(args):
+    """What an itx call holds: jobs by tx size (w x h), nonzero
+    coefficients of all, and the mean count of coded rows with a nonzero
+    coefficient (the rows the kernel transforms) per job of each size."""
+    import torch
+
+    from dav1d_tpu_torch.ops.itx import _txinfo
+
+    cf, jobs = args[0], args[1].long()
+    by_size, rows, nz, n = {}, {}, 0, 0
+    for tx in torch.unique(jobs[:, 1]).tolist():
+        g = jobs[jobs[:, 1] == tx]
+        w, h, _, _ = _txinfo(tx)
+        sw, sh = min(w, 32), min(h, 32)
+        coef = cf[g[:, 0, None] + torch.arange(sw * sh, device=cf.device)]
+        coef = coef.reshape(len(g), sw, sh) != 0
+        key = f"{w}x{h}"
+        by_size[key] = len(g)
+        rows[key] = round(float(coef.any(1).sum(1).float().mean()), 2)
+        nz += int(coef.sum())
+        n += coef.numel()
+    return {"jobs_by_size": by_size, "nonzero_coefs": nz, "coefs": n,
+            "mean_nonzero_rows": rows}
+
+
+def itx_occupancy():
+    """Registers, static shared memory and resident CTAs per SM of the
+    itx kernel at 8/10-bit and at 12-bit (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+
+    from dav1d_tpu_torch.kernels import build
+
+    v = (ctypes.c_int * 6)()
+    rc = build.lib().dtpu_itx_occupancy(v)
+    _require(rc == 0, f"dtpu_itx_occupancy: {build.error_string(rc)}")
+    return {bd: {"registers": v[i], "shared_bytes": v[i + 1],
+                 "ctas_per_sm": v[i + 2]}
+            for bd, i in (("8/10-bit", 0), ("12-bit", 3))}
+
+
 def main() -> int:
     import torch
 
@@ -801,6 +954,8 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             print("  ptxas:", line.strip(), flush=True)
+    occ = itx_occupancy()
+    print(f"  itx kernel (64 threads a CTA): {occ}", flush=True)
 
     # (ops/itx imports the port's recon/itx, which loads the native C:
     # after its timed build above)
@@ -827,6 +982,11 @@ def main() -> int:
         want = ninter if k == "mc" else nframes
         _require(n >= want, f"{k}: {n} launches, want >= {want} "
                  f"({nframes} frames, {ninter} inter)")
+    # one itx launch per frame; every frame of the stream searches the
+    # CDEF directions of its luma plane, once
+    for k in ("itx", "cdef_dir"):
+        _require(launches[k] == nframes, f"{k}: {launches[k]} launches "
+                 f"for {nframes} frames, want one per frame")
     _require(ninter >= 3, f"{MAIN_STREAM}: {ninter} inter frames")
     devrt.LAUNCHES.clear()
     devrt.COUNTS.clear()
@@ -906,10 +1066,14 @@ def main() -> int:
              "plain version on the decode's calls")
     _require(len(itx_calls) == n, f"the traced decode made "
              f"{len(itx_calls)} itx calls for {n} frames")
+    itx_stats = []
     for i, args in enumerate(itx_calls):
-        e = _max_abs_err(oitx.itx_frame(*args), oitx.itx_frame_plain(*args))
-        print(f"  itx decode call {i}: {args[1].shape[0]} jobs, {args[2]} "
-              f"residuals, max_abs_err={e}", flush=True)
+        e = _max_abs_err(oitx.itx_frame(*args), _itx_plain(*args))
+        st = itx_call_stats(args)
+        itx_stats.append(st)
+        print(f"  itx decode call {i}: {args[1].shape[0]} jobs in "
+              f"{args[2].shape[0]} groups, {args[3]} residuals, "
+              f"max_abs_err={e}; {st}", flush=True)
         errs["itx"] = max(errs["itx"], e)
     _require(errs["itx"] == 0, "itx disagrees with its plain version on "
              "the decode's calls")
@@ -918,9 +1082,17 @@ def main() -> int:
     timed["mc"] = (f"1080p inter frame of the decode ({big[2].shape[0]} "
                    f"jobs)", omc.put_8tap_resident,
                    omc.put_8tap_resident_plain, big)
+    # itx on two calls: the one with the most jobs (the key frame's,
+    # mostly small) here, the one with the most 64x64 jobs below
     big = max(itx_calls, key=lambda a: a[1].shape[0])
     timed["itx"] = (f"1080p frame of the decode ({big[1].shape[0]} jobs)",
-                    oitx.itx_frame, oitx.itx_frame_plain, big)
+                    oitx.itx_frame, _itx_plain, big)
+    others = [i for i, a in enumerate(itx_calls) if a is not big]
+    i64 = max(others or [0], key=lambda i: itx_stats[i]["jobs_by_size"]
+              .get("64x64", 0))
+    timed_inter = (f"1080p inter frame of the decode with the most 64x64 "
+                   f"jobs (call {i64}, {itx_calls[i64][1].shape[0]} jobs)",
+                   oitx.itx_frame, _itx_plain, itx_calls[i64])
     big = max((a for a in cdef_calls if a[11]), key=lambda a: a[0].numel())
     timed["cdef_filter"] = (
         f"1080p luma call of the decode {tuple(big[0].shape)}",
@@ -942,6 +1114,19 @@ def main() -> int:
                         "launch_ms": l_ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "share": bound_ms / l_ms, "library_ms": None})
+    # the second itx call
+    label, kfn, pfn, args = timed_inter
+    ms, plain_ms, _ = time_kernels({"itx": timed_inter})["itx"]
+    l_ms, host_s = launch_ms(kfn, args)
+    bound_ms, bound_by = bound("itx", args)
+    print(f"  itx          {label}: wrapper {ms:.4f} ms, launch "
+          f"{l_ms:.4f} ms (20 launches queued in {host_s * 1e3:.2f} ms of "
+          f"host time), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), share {bound_ms / l_ms:.3f}", flush=True)
+    next(k for k in kernels if k["name"] == "itx")["second_call"] = {
+        "label": label, "ms": ms, "launch_ms": l_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "share": bound_ms / l_ms}
     _require(not _jax_modules(), f"jax was imported: {_jax_modules()}")
     print(json.dumps({"decode_fps": fps, "decode_fps_runs": runs,
                       "stage_ms_per_frame": stages, "stream": MAIN_STREAM,
@@ -949,6 +1134,7 @@ def main() -> int:
                                                for k, v in xfer.items()},
                       "bound_ms_per_frame": frame_bound,
                       "mc_tile_list_host_ms_per_frame": tl_ms,
+                      "itx_calls": itx_stats, "itx_occupancy": occ,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

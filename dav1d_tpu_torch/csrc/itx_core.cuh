@@ -1,6 +1,7 @@
 // The arithmetic of the inverse-transform kernel (csrc/itx.cu): the 1-D
 // transforms, written from the port's recon/itx.py (_1D_FNS, wht4), and
-// the four phases of one 2-D job (load, row pass, column pass, store).
+// the phases of one group of jobs (setup, load, row pass, column pass
+// with the store).
 //
 // Every function works in place on a strided line of a tile in shared
 // memory and is templated on the element type: int at 8/10-bit (the JAX
@@ -16,10 +17,15 @@
 
 #ifdef __CUDACC__
 #define ITX_FN __device__ inline
+#define ITX_NOINLINE __device__ __noinline__
 #define ITX_CONST __constant__
+#define ITX_TRAP() __trap()
 #else
+#include <stdlib.h>
 #define ITX_FN inline
+#define ITX_NOINLINE inline
 #define ITX_CONST static const
+#define ITX_TRAP() abort()
 #endif
 
 namespace itx {
@@ -784,8 +790,11 @@ ITX_FN void wht4(T* c, int s) {
 
 // The 1-D transform of length 4 << lsz and type `type` on c[0], c[s], ...
 // (recon/itx.py _1D_FNS); the caller has checked that the pair exists.
+// Not inlined on the device: the row pass (stride S) and the column
+// pass (stride 1) share one copy of the transforms, and the kernel's
+// code, which runs cold in a decode, is about half as large (PERF.md).
 template <typename T>
-ITX_FN void tx1d(T* c, int s, int lsz, int type, Clip<T> cl) {
+ITX_NOINLINE void tx1d(T* c, int s, int lsz, int type, Clip<T> cl) {
     const int n = 4 << lsz;
     if (type == DCT) {
         switch (lsz) {
@@ -808,32 +817,90 @@ ITX_FN void tx1d(T* c, int s, int lsz, int type, Clip<T> cl) {
     }
 }
 
-// ---- one 2-D job, in four phases ----------------------------------------
+// ---- a group of jobs, in four phases ------------------------------------
 //
-// The tile holds the job's h x w block row-major with a row stride of
-// w + 1 (the row pass's threads then hit different shared-memory banks).
-// Between two phases the caller synchronises its threads; within a phase
-// thread `tid` of `nt` touches only its own rows or columns.
+// The schedule (ops/itx.py group_list) cuts the job list, sorted by tx
+// size, into groups of consecutive jobs of one tx size: LANES / w jobs
+// of width w, so that the column pass has one lane per column (16 4x4
+// jobs, 8 8x8, 4 16x16, 2 32x32, one 64-wide job).  One CTA of LANES
+// threads runs one group.  Between two phases the caller synchronises
+// its threads; within a phase thread `tid` of `nt` writes only what it
+// owns.
+//
+// The tile holds each job's sw x sh coefficients widened to w x sh,
+// column-major: element (x, y) of job j at (j * w + x) * S + y, with a
+// column stride S = sh + 1.  A column is contiguous, so the column pass
+// runs in place with stride 1, and lanes on neighbouring columns (of
+// one job or of neighbouring jobs) are S words apart, S odd: the column
+// pass has no bank conflicts.  The load reads the column-major
+// coefficient window in order, neighbouring lanes on neighbouring
+// words, and transposes nothing: the window's [x][y] order is the
+// tile's, one padding word a column apart (the row pass reads across
+// columns, S apart).  A group's tile is LANES * (sh + 1) elements, at
+// most LANES * 33: 8,448 B at 8/10-bit, 16,896 B at 12-bit.  A 64-row
+// column (sh is 32) is transformed in registers and stored from there:
+// in place in a tile of 65 rows a column it ran slower (PERF.md).
+//
+// Zero rows.  A coded row whose coefficients are all zero leaves the
+// row pass as zeros: every step of every 1-D transform of the codec
+// (DCT, ADST, FLIPADST, IDENTITY, WHT) maps zeros to zero — sums and
+// differences, the rotations (0*a + 0*b + 2048) >> 12, (0*181+128) >> 8,
+// the identity scalings, WHT's halving — as do the rect2 pre-scale
+// (0*181+128) >> 8, WHT's cf >> 2, the rounding (0 + rnd) >> shift with
+// rnd < 2^shift, and both clips.  So the load records a flag per coded
+// row (bit y of the job's row mask) for each row holding a nonzero value,
+// and the row pass transforms only the flagged rows, dealt out to the
+// CTA's lanes in turn; the other rows stay 0.  A flag per row, not a
+// count of leading rows: a nonzero row may follow zero rows.  The column
+// pass runs every column.
 
-struct Geom {
-    int w, h, lw, lh, sw, sh, shift, row_t, col_t;
-    bool rect2, wht;
+constexpr int LANES = 64;             // threads of the kernel's CTA
+constexpr int MAX_JOBS = LANES / 4;   // a group of 4-wide jobs
+constexpr int TILE_ELEMS = LANES * 33;
+
+// Columns of a group row (int32, ops/itx.py group_list): first job, job
+// count, their tx size.
+constexpr int GROUP_COLS = 3;
+constexpr int G_FIRST = 0, G_COUNT = 1, G_TX = 2;
+
+#ifdef __CUDACC__
+#define ITX_POPC(v) __popc(v)
+#define ITX_CTZ(v) (__ffs((int)(v)) - 1)
+#define ITX_OR(p, v) atomicOr((p), (v))
+#else
+#define ITX_POPC(v) __builtin_popcount(v)
+#define ITX_CTZ(v) __builtin_ctz(v)
+#define ITX_OR(p, v) (*(p) |= (v))
+#endif
+
+// A group's tx size and job count.
+struct Size {
+    int tx, w, h, lw, lh, lsh, sw, sh, S, shift, n;
+    bool rect2;
 };
 
-ITX_FN Geom geom(int tx, int txtp) {
-    Geom g;
-    g.lw = TX_LW[tx];
-    g.lh = TX_LH[tx];
-    g.w = 4 << g.lw;
-    g.h = 4 << g.lh;
-    g.sw = g.w < 32 ? g.w : 32;
-    g.sh = g.h < 32 ? g.h : 32;
-    g.shift = TX_SHIFT[tx];
-    g.rect2 = g.lw - g.lh == 1 || g.lh - g.lw == 1;
-    g.wht = txtp == WHT_WHT;
-    g.row_t = g.wht ? 0 : TX_ROW_T[txtp];
-    g.col_t = g.wht ? 0 : TX_COL_T[txtp];
-    return g;
+// `count` jobs of size `tx`.  A group row that ops/itx.py group_list
+// cannot make — a tx size out of range, no job, more than the LANES / w
+// jobs a group holds — stops the kernel (a launch failure on the host),
+// as does a job of another tx size in setup: the tile and the group's
+// job arrays are sized for what group_list makes.
+ITX_FN Size size_of(int tx, int count) {
+    if (tx < 0 || tx >= N_TX) ITX_TRAP();
+    Size z;
+    z.tx = tx;
+    z.lw = TX_LW[tx];
+    z.lh = TX_LH[tx];
+    z.w = 4 << z.lw;
+    z.h = 4 << z.lh;
+    z.lsh = z.lh < 3 ? z.lh : 3;
+    z.sw = z.w < 32 ? z.w : 32;
+    z.sh = 4 << z.lsh;
+    z.S = z.sh + 1;
+    z.shift = TX_SHIFT[tx];
+    z.rect2 = z.lw - z.lh == 1 || z.lh - z.lw == 1;
+    if (count < 1 || count > LANES >> (z.lw + 2)) ITX_TRAP();
+    z.n = count;
+    return z;
 }
 
 // Row and column clips of the bit depth (recon/itx.py itx_add).
@@ -849,68 +916,121 @@ ITX_FN void clips(int bitdepth, Clip<T>& row, Clip<T>& col) {
     col.hi = ~col.lo;
 }
 
-// Phase 1: the sw x sh coefficients, column-major ([x][y]), into the
-// tile, zero beyond them; WHT_WHT takes cf >> 2, a 2:1 block the rect2
-// pre-scale.
+// A CTA's shared memory: the tile and its jobs' rows.
 template <typename T>
-ITX_FN void load(T* tile, const int* cf, const Geom& g, int tid, int nt) {
-    const int ws = g.w + 1;
-    for (int i = tid; i < g.h * g.w; i += nt) {
-        const int y = i / g.w, x = i - y * g.w;
-        T v = 0;
-        if (x < g.sw && y < g.sh) {
-            v = cf[x * g.sh + y];
-            if (g.wht)
-                v >>= 2;
-            else if (g.rect2)
-                v = r181<T>(v);
-        }
-        tile[y * ws + x] = v;
+struct Group {
+    T tile[TILE_ELEMS];
+    int cf[MAX_JOBS], out[MAX_JOBS], txtp[MAX_JOBS];
+    unsigned rows[MAX_JOBS];  // bit y: coded row y holds a nonzero value
+};
+
+// Phase 0: the group's job rows (jobs first .. first + n - 1), each of
+// the group's tx size, and the row masks cleared.
+template <typename T>
+ITX_FN void setup(Group<T>& s, const int* jobs, int first, const Size& z,
+                  int tid, int nt) {
+    for (int j = tid; j < z.n; j += nt) {
+        const int* J = jobs + (long long)(first + j) * JOB_COLS;
+        if (J[J_TX] != z.tx) ITX_TRAP();
+        s.cf[j] = J[J_CF];
+        s.out[j] = J[J_OUT];
+        s.txtp[j] = J[J_TXTP];
+        s.rows[j] = 0;
     }
 }
 
-// Phase 2: the row transform of each of the first sh rows (the others
-// are zero and stay zero), then the rounding shift and the column clip.
+// Phase 1: each job's sw x sh coefficients ([x][y]) in window order into
+// the tile, columns sw.. zero; WHT_WHT takes cf >> 2, a 2:1 block the
+// rect2 pre-scale; the row flags.  A lane issues LOAD_BATCH loads before
+// it stores any, so that their latencies overlap.
+constexpr int LOAD_BATCH = 16;
+
 template <typename T>
-ITX_FN void rows(T* tile, const Geom& g, Clip<T> rcl, Clip<T> ccl, int tid,
+ITX_FN void load(Group<T>& s, const int* cf, const Size& z, int tid,
                  int nt) {
-    const int ws = g.w + 1;
-    const T rnd = (T(1) << g.shift) >> 1;
-    for (int y = tid; y < g.sh; y += nt) {
-        T* r = tile + y * ws;
-        if (g.wht) {
-            wht4<T>(r, 1);
+    const int lcol = z.lsh + 2, lper = z.lw + 2 + lcol;
+    const int total = z.n << lper, kmask = (1 << lper) - 1;
+    for (int i0 = tid; i0 < total; i0 += nt * LOAD_BATCH) {
+        T v[LOAD_BATCH];
+#pragma unroll
+        for (int u = 0; u < LOAD_BATCH; u++) {
+            const int i = i0 + u * nt, k = i & kmask;
+            // window element x * sh + y = k, for x < sw
+            v[u] = i < total && (k >> lcol) < z.sw
+                       ? T(cf[s.cf[i >> lper] + k]) : T(0);
+        }
+#pragma unroll
+        for (int u = 0; u < LOAD_BATCH; u++) {
+            const int i = i0 + u * nt;
+            if (i >= total) break;
+            const int j = i >> lper, k = i & kmask;
+            const int x = k >> lcol, y = k & (z.sh - 1);
+            T c = v[u];
+            if (s.txtp[j] == WHT_WHT)
+                c >>= 2;
+            else if (z.rect2)
+                c = r181<T>(c);
+            s.tile[((j << (z.lw + 2)) + x) * z.S + y] = c;
+            if (c != 0) ITX_OR(&s.rows[j], 1u << y);
+        }
+    }
+}
+
+// Phase 2: the row transform of each flagged row, then the rounding
+// shift and the column clip; lane tid takes flagged rows tid, tid + nt,
+// ... of the group, counted job by job.
+template <typename T>
+ITX_FN void rows(Group<T>& s, const Size& z, Clip<T> rcl, Clip<T> ccl,
+                 int tid, int nt) {
+    int total = 0;
+    for (int j = 0; j < z.n; j++) total += ITX_POPC(s.rows[j]);
+    const T rnd = (T(1) << z.shift) >> 1;
+    for (int r = tid; r < total; r += nt) {
+        int j = 0, k = r;  // flagged row k of job j
+        for (int c; k >= (c = ITX_POPC(s.rows[j])); j++) k -= c;
+        unsigned m = s.rows[j];
+        for (; k > 0; k--) m &= m - 1;  // drop the k lowest flags
+        T* c = s.tile + (j << (z.lw + 2)) * z.S + ITX_CTZ(m);
+        const int tp = s.txtp[j];
+        if (tp == WHT_WHT) {
+            wht4<T>(c, z.S);
             continue;
         }
-        tx1d<T>(r, 1, g.lw, g.row_t, rcl);
-        for (int x = 0; x < g.w; x++) r[x] = ccl((r[x] + rnd) >> g.shift);
+        tx1d<T>(c, z.S, z.lw, TX_ROW_T[tp], rcl);
+#pragma unroll 4
+        for (int x = 0; x < z.w; x++)
+            c[x * z.S] = ccl((c[x * z.S] + rnd) >> z.shift);
     }
 }
 
-// Phase 3: the column transform of each column, with the column clip.
-template <typename T>
-ITX_FN void cols(T* tile, const Geom& g, Clip<T> ccl, int tid, int nt) {
-    const int ws = g.w + 1;
-    for (int x = tid; x < g.w; x += nt) {
-        if (g.wht)
-            wht4<T>(tile + x, ws);
-        else
-            tx1d<T>(tile + x, ws, g.lh, g.col_t, ccl);
-    }
-}
-
-// Phase 4: (v + 8) >> 4 (WHT_WHT: v), row-major, narrowed to O.
+// Phase 3: the column transform of each column with the column clip,
+// and its residuals, (v + 8) >> 4 (WHT_WHT: v), stored row-major at the
+// job's offset, narrowed to O.
 template <typename T, typename O>
-ITX_FN void store(const T* tile, O* out, const Geom& g, int tid, int nt) {
-    const int ws = g.w + 1;
-    for (int i = tid; i < g.h * g.w; i += nt) {
-        const int y = i / g.w, x = i - y * g.w;
-        const T v = tile[y * ws + x];
-        out[i] = (O)(g.wht ? v : (v + 8) >> 4);
+ITX_FN void cols(Group<T>& s, const Size& z, Clip<T> ccl, O* out, int tid,
+                 int nt) {
+    for (int i = tid; i < z.n << (z.lw + 2); i += nt) {
+        const int j = i >> (z.lw + 2), x = i & (z.w - 1);
+        T* c = s.tile + i * z.S;
+        O* o = out + s.out[j] + x;
+        const int tp = s.txtp[j];
+        if (tp == WHT_WHT) {
+            wht4<T>(c, 1);
+            for (int y = 0; y < 4; y++) o[y * 4] = (O)c[y];
+        } else if (z.lh == 4) {  // 64 rows: DCT only; inputs 32.. zero
+            T col[64];
+#pragma unroll
+            for (int y = 0; y < 64; y++) col[y] = y < 32 ? c[y] : T(0);
+            dct64<T>(col, 1, ccl);
+#pragma unroll
+            for (int y = 0; y < 64; y++)
+                o[y * z.w] = (O)((col[y] + 8) >> 4);
+        } else {
+            tx1d<T>(c, 1, z.lh, TX_COL_T[tp], ccl);
+#pragma unroll 4
+            for (int y = 0; y < z.h; y++) o[y * z.w] = (O)((c[y] + 8) >> 4);
+        }
     }
 }
-
-// Largest tile: 64 rows of 64 + 1.
-constexpr int TILE_ELEMS = 64 * 65;
 
 }  // namespace itx

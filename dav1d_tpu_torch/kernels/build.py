@@ -118,8 +118,10 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _P],
     # table, jobs, tiles, n_tiles, out, bitdepth, stream
     "dtpu_mc_put_8tap": [_P, _P, _P, _I, _P, _I, _P],
-    # cf, jobs, n_jobs, out, bitdepth, stream
-    "dtpu_itx_frame": [_P, _P, _I, _P, _I, _P],
+    # cf, jobs, groups, n_groups, out, bitdepth, stream
+    "dtpu_itx_frame": [_P, _P, _P, _I, _P, _I, _P],
+    # out[6]: registers, static shared bytes, CTAs per SM (8/10, 12-bit)
+    "dtpu_itx_occupancy": [_P],
 }
 
 

@@ -23,8 +23,10 @@ output buffer: int16 at bit depths 8/10 (|residual| <= 8192) and int32 at
   overflow int32 (the reference's device tier uses int32 split forms
   there, which are exact rewrites of the same values).
 * :func:`itx_frame` is the wrapper: the plain version for CPU tensors,
-  the CUDA kernel ``csrc/itx.cu`` for CUDA tensors (one launch for every
-  job of the frame, counted under the tag ``itx``).
+  the CUDA kernel ``csrc/itx.cu`` (arithmetic and phases in
+  ``csrc/itx_core.cuh``) for CUDA tensors: one launch for every job of
+  the frame, counted under the tag ``itx``, over the :func:`group_list`
+  that :func:`job_table` returns beside the jobs.
 """
 
 from __future__ import annotations
@@ -45,6 +47,12 @@ J_CF, J_TX, J_TXTP, J_OUT = range(4)
 JOB_COLS = 4
 N_TX = 19
 N_TXTP = 17  # 16 types + WHT_WHT
+# columns of a group row (int32; csrc/itx_core.cuh G_*): first job,
+# number of jobs, their tx size; and the threads of the kernel's CTA,
+# one group each
+G_FIRST, G_COUNT, G_TX = range(3)
+GROUP_COLS = 3
+LANES = 64
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,14 +74,59 @@ def valid_pair(tx: int, txtp: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def _luts():
-    """(valid (N_TX, N_TXTP) bool, h*w per tx, sw*sh per tx)."""
+    """(valid (N_TX, N_TXTP) bool, h*w per tx, sw*sh per tx, w per
+    tx)."""
     valid = np.array([[valid_pair(tx, tp) for tp in range(N_TXTP)]
                       for tx in range(N_TX)])
     hw = np.array([_txinfo(tx)[0] * _txinfo(tx)[1] for tx in range(N_TX)],
                   dtype=np.int64)
     nc = np.array([min(_txinfo(tx)[0], 32) * min(_txinfo(tx)[1], 32)
                    for tx in range(N_TX)], dtype=np.int64)
-    return valid, hw, nc
+    w = np.array([_txinfo(tx)[0] for tx in range(N_TX)], dtype=np.int64)
+    return valid, hw, nc, w
+
+
+def group_list(tx) -> np.ndarray:
+    """The kernel's schedule for jobs of tx sizes ``tx``, in job order
+    (jobs of one size contiguous, as :func:`job_table` sorts them):
+    (N, GROUP_COLS) int32 rows (first job, number of jobs, tx size)
+    cutting each run of one tx size into groups of LANES / w consecutive
+    jobs of width w, one CTA each: its column pass has a lane per
+    column."""
+    tx = np.asarray(tx, dtype=np.int64)
+    n = len(tx)
+    idx = np.arange(n)
+    start = np.ones(n, dtype=bool)
+    start[1:] = tx[1:] != tx[:-1]
+    run0 = np.maximum.accumulate(np.where(start, idx, 0))
+    per = LANES // _luts()[3][tx]
+    first = np.flatnonzero((idx - run0) % per == 0)
+    groups = np.empty((len(first), GROUP_COLS), dtype=np.int32)
+    groups[:, G_FIRST] = first
+    groups[:, G_COUNT] = np.diff(np.append(first, n))
+    groups[:, G_TX] = tx[first]
+    return groups
+
+
+def check_groups(tx, groups) -> None:
+    """Raise unless ``groups`` is a schedule the kernel takes for jobs of
+    tx sizes ``tx``: groups of 1 .. LANES / w jobs of the group's own tx
+    size, covering every job once, in order, as :func:`group_list`
+    makes them (the kernel stops on a group row that breaks this)."""
+    tx = np.asarray(tx, dtype=np.int64)
+    g = np.asarray(groups, dtype=np.int64).reshape(-1, GROUP_COLS)
+    first, cnt, gtx = g[:, G_FIRST], g[:, G_COUNT], g[:, G_TX]
+    if len(g) and (gtx.min() < 0 or gtx.max() >= N_TX):
+        raise ValueError("groups: a tx size out of range")
+    if len(g) and (cnt.min() < 1
+                   or (cnt > LANES // _luts()[3][gtx]).any()):
+        raise ValueError(f"groups: a group of no jobs or of more than "
+                         f"{LANES} / w jobs")
+    if (cnt.sum() != len(tx)
+            or not np.array_equal(first, np.cumsum(cnt) - cnt)
+            or not np.array_equal(np.repeat(gtx, cnt), tx)):
+        raise ValueError("groups: not every job once, in order, in a "
+                         "group of its tx size")
 
 
 def out_dtype(bitdepth: int) -> torch.dtype:
@@ -87,14 +140,16 @@ def job_table(cf_off, tx, txtp, eob, n_cf):
     groups them (dav1d_tpu/pipeline.py:105-113), so neighbouring jobs
     take the same branches; each job's residuals follow the previous
     job's in the output (a prefix sum of h*w).  Returns (order, jobs,
-    n_out): ``order`` maps job rows to the input rows, ``jobs`` is
-    (N, JOB_COLS) int32, ``n_out`` the number of residuals.  Raises on a
-    pair the codec does not have and on coefficients outside the arena."""
+    groups, n_out): ``order`` maps job rows to the input rows, ``jobs``
+    is (N, JOB_COLS) int32, ``groups`` their :func:`group_list` (the
+    kernel's schedule), ``n_out`` the number of residuals.  Raises on a
+    pair the codec does not have and on coefficients outside the
+    arena."""
     cf_off = np.asarray(cf_off, dtype=np.int64)
     tx = np.asarray(tx, dtype=np.int64)
     txtp = np.asarray(txtp, dtype=np.int64)
     eob = np.asarray(eob, dtype=np.int64)
-    valid, hw, nc = _luts()
+    valid, hw, nc, _ = _luts()
     if len(tx) and (tx.min() < 0 or tx.max() >= N_TX or txtp.min() < 0
                     or txtp.max() >= N_TXTP
                     or not valid[tx, txtp].all()):
@@ -111,7 +166,7 @@ def job_table(cf_off, tx, txtp, eob, n_cf):
         raise ValueError(f"{n_out} residuals exceed int32 offsets")
     jobs = np.stack([cf_off[order], tx[order], txtp[order],
                      np.cumsum(size) - size], axis=1).astype(np.int32)
-    return order, jobs, n_out
+    return order, jobs, group_list(tx[order]), n_out
 
 
 def _itx_core(cf: torch.Tensor, tx: int, txtp: int,
@@ -193,13 +248,15 @@ def itx_frame_plain(cf: torch.Tensor, jobs: torch.Tensor, n_out: int,
     return out
 
 
-def itx_frame(cf: torch.Tensor, jobs: torch.Tensor, n_out: int,
-              bitdepth: int) -> torch.Tensor:
+def itx_frame(cf: torch.Tensor, jobs: torch.Tensor, groups: torch.Tensor,
+              n_out: int, bitdepth: int) -> torch.Tensor:
     """The frame's inverse transforms (see :func:`itx_frame_plain`).
-    CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/itx.cu``: one launch for every job, whatever its size or type.
-    ``jobs`` must come from :func:`job_table`, which checks every pair
-    and every coefficient window."""
+    ``groups`` is the kernel's schedule and does not change the result.
+    CPU tensors run the plain version, after :func:`check_groups`; CUDA
+    tensors launch ``csrc/itx.cu``: one launch for every group of jobs,
+    whatever their size or type.  ``jobs`` and ``groups`` must come from
+    :func:`job_table`, which checks every pair and every coefficient
+    window and keeps each group within one tx size."""
     if bitdepth not in (8, 10, 12):
         raise ValueError(f"bitdepth {bitdepth}")
     build.check(cf, "cf")
@@ -209,15 +266,21 @@ def itx_frame(cf: torch.Tensor, jobs: torch.Tensor, n_out: int,
     if jobs.dim() != 2 or jobs.shape[1] != JOB_COLS:
         raise ValueError(f"jobs: shape {tuple(jobs.shape)}, expected "
                          f"(N, {JOB_COLS})")
-    if not build.on_cuda(cf, jobs):
+    build.check(groups, "groups")
+    if groups.dim() != 2 or groups.shape[1] != GROUP_COLS:
+        raise ValueError(f"groups: shape {tuple(groups.shape)}, expected "
+                         f"(N, {GROUP_COLS})")
+    if not build.on_cuda(cf, jobs, groups):
+        check_groups(jobs[:, J_TX].numpy(), groups.numpy())
         return itx_frame_plain(cf, jobs, n_out, bitdepth)
     # zeroed like the plain version's (a job list from job_table writes
     # every element)
     out = torch.zeros(n_out, dtype=out_dtype(bitdepth), device=cf.device)
-    if jobs.shape[0] == 0:
+    if groups.shape[0] == 0:
         return out
     with torch.cuda.device(cf.device):
         devrt.launch("itx", build.lib().dtpu_itx_frame, cf.data_ptr(),
-                     jobs.data_ptr(), int(jobs.shape[0]), out.data_ptr(),
-                     int(bitdepth), build.stream(cf))
+                     jobs.data_ptr(), groups.data_ptr(),
+                     int(groups.shape[0]), out.data_ptr(), int(bitdepth),
+                     build.stream(cf))
     return out

@@ -107,12 +107,16 @@ def _launch_residuals_native(f):
     if valid.size == 0:
         return st
     n_cf = int(glue.c.cf_used)
-    order, jobs, n_out = ditx.job_table(
+    order, jobs, groups, n_out = ditx.job_table(
         meta[valid, 5], meta[valid, 2] >> 8, meta[valid, 1], meta[valid, 0],
         n_cf)
+    # jobs and groups go up in one copy
+    both = devrt.upload(np.concatenate([jobs.ravel(), groups.ravel()]),
+                        f.device)
     out = devrt.call("itx", ditx.itx_frame,
                      devrt.upload(glue.cf_arena[:n_cf], f.device),
-                     devrt.upload(jobs, f.device), n_out, f.bitdepth)
+                     both[:jobs.size].view(jobs.shape),
+                     both[jobs.size:].view(groups.shape), n_out, f.bitdepth)
     st.host, st.event = devrt.fetch_async(out)
     st.jobs = jobs
     st.pos = np.full(meta.shape[0], -1, dtype=np.int64)

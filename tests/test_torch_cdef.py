@@ -9,6 +9,13 @@
   region;
 * the port's cost-lattice bins and weights vs ops/cdef._cost_weights()
   and recon/cdef._onehot_maps();
+* the direction kernel's own arithmetic, ``csrc/cdef_dir_core.cuh``
+  built as host C++ and run block by block, as the kernel's threads run
+  it, against the plain direction search: noise, flat blocks (tied
+  costs: the first maximum wins), blocks at 0 and at 2^bd - 1 and
+  0 / 2^bd - 1 checkerboards (the largest partial sums),
+  transpose-symmetric blocks (costs tied between two directions),
+  planes larger than their 8x8 grid, bit depths 8/10/12;
 * the filter kernel's own arithmetic, ``csrc/cdef_core.cuh`` built as
   host C++ and run tile by tile, the CTA's 256 threads in turn per
   phase, against the plain filter: units 8x8 (luma, 4:4:4 chroma), 4x4
@@ -325,3 +332,103 @@ def test_kernel_source_on_host(kernel_on_host, case, bitdepth, content):
     assert np.array_equal(got, want), \
         f"mismatch at {np.argwhere(got != want)[:4]}"
     assert not np.array_equal(want[:ph, :pw], plane[:ph, :pw])
+
+
+_DIR_HARNESS = r"""
+#include "cdef_dir_core.cuh"
+
+extern "C" void cdef_dir_host(const int* plane, int H, int W, int bitdepth,
+                              const int* bw, int* dir, int* var) {
+    const int W8 = W / 8;
+    for (int i = 0; i < (H / 8) * W8; i++)  // the kernel's thread i
+        cdir::block(plane, W, bitdepth - 8, bw, i / W8, i % W8, dir + i,
+                    var + i);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def dir_kernel_on_host(tmp_path_factory):
+    """The direction kernel's arithmetic header built as host C++ (a
+    ctypes function running every block as the kernel's threads do)."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no C++ compiler")
+    d = tmp_path_factory.mktemp("cdef_dir_host")
+    (d / "harness.cpp").write_text(_DIR_HARNESS)
+    so = d / "libcdef_dir_host.so"
+    r = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+                        "-I", str(CSRC), "-o", str(so),
+                        str(d / "harness.cpp")],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.cdef_dir_host.argtypes = [P, I, I, I, P, P, P]
+    lib.cdef_dir_host.restype = None
+    return lib
+
+
+def _dir_blocks(rng, H, W, bitdepth, content):
+    """(H, W) int32 plane of 8x8 blocks of one kind of content."""
+    hi = (1 << bitdepth) - 1
+    nby, nbx = -(-H // 8), -(-W // 8)
+    if content == "noise":
+        return rng.integers(0, hi + 1, (H, W)).astype(np.int32)
+    blocks = np.empty((nby, nbx, 8, 8), np.int64)
+    yy, xx = np.mgrid[0:8, 0:8]
+    for by in range(nby):
+        for bx in range(nbx):
+            k = int(rng.integers(0, 4))
+            if content == "flat":
+                lvl = (128 << (bitdepth - 8)) if k == 0 else \
+                    int(rng.integers(0, hi + 1))
+                b = np.full((8, 8), lvl)
+            elif content == "extremes":
+                b = [np.zeros((8, 8)), np.full((8, 8), hi),
+                     ((yy + xx) % 2) * hi, (yy % 2) * hi][k]
+            else:  # ties: transpose-symmetric blocks
+                f = rng.integers(0, hi + 1, 8)
+                g = rng.integers(0, hi + 1, 15)
+                b = [(f[yy] + f[xx]) // 2, g[yy + xx], g[7 + yy - xx],
+                     np.maximum(f[yy], f[xx])][k]
+            blocks[by, bx] = b
+    plane = blocks.transpose(0, 2, 1, 3).reshape(nby * 8, nbx * 8)
+    return np.clip(plane[:H, :W], 0, hi).astype(np.int32)
+
+
+@pytest.mark.parametrize("content", ["noise", "flat", "extremes", "ties"])
+@pytest.mark.parametrize("bitdepth", [8, 10, 12])
+def test_dir_kernel_source_on_host(dir_kernel_on_host, bitdepth, content):
+    """cdef_dir_core.cuh's arithmetic equals the plain direction search
+    exactly; planes of 96 blocks, 55 blocks (rows 90 wide, two columns
+    past the 8x8 grid) and 15 blocks (rows and columns past it)."""
+    rng = np.random.default_rng(bitdepth * 13 + len(content))
+    bw = state.cdef_bin_weights().astype(np.int32)
+    ties = 0
+    for H, W in ((64, 96), (40, 90), (30, 44)):
+        plane = _dir_blocks(rng, H, W, bitdepth, content)
+        want_d, want_v = tcdef.find_dir_maps_plain(torch.from_numpy(plane),
+                                                   bitdepth)
+        d = np.full((H // 8, W // 8), -1, np.int32)
+        v = np.full_like(d, -1)
+        dir_kernel_on_host.cdef_dir_host(plane.ctypes.data, H, W, bitdepth,
+                                         bw.ctypes.data, d.ctypes.data,
+                                         v.ctypes.data)
+        assert np.array_equal(d, want_d.numpy()), \
+            f"dir mismatch at {np.argwhere(d != want_d.numpy())[:4]}"
+        assert np.array_equal(v, want_v.numpy())
+        if content in ("flat", "ties"):
+            R8, W8 = H // 8, W // 8
+            blk = torch.from_numpy(plane[:R8 * 8, :W8 * 8]).reshape(
+                R8, 8, W8, 8).permute(0, 2, 1, 3).reshape(-1, 64).long()
+            px = (blk >> (bitdepth - 8)) - 128
+            tb = state.tables(torch.device("cpu"))
+            cost = torch.stack([
+                (torch.zeros((px.shape[0], 15), dtype=torch.int64)
+                 .index_add_(1, tb.bin_index[k], px) ** 2
+                 * tb.bin_weights[k].long()).sum(1) for k in range(8)], 1)
+            best = cost.max(1).values[:, None]
+            ties += int(((cost == best).sum(1) > 1).sum())
+    if content in ("flat", "ties"):
+        assert ties > 0  # the first maximum decided some blocks

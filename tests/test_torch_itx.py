@@ -62,9 +62,9 @@ def _plain(cfs, tx, txtp, bd):
     in input order."""
     B, nc = cfs.shape
     arena = torch.from_numpy(cfs.reshape(-1).copy())
-    order, jobs, n_out = titx.job_table(np.arange(B) * nc, np.full(B, tx),
-                                        np.full(B, txtp), np.zeros(B),
-                                        arena.numel())
+    order, jobs, _, n_out = titx.job_table(
+        np.arange(B) * nc, np.full(B, tx), np.full(B, txtp), np.zeros(B),
+        arena.numel())
     out = titx.itx_frame_plain(arena, torch.from_numpy(jobs), n_out, bd)
     w, h, _, _ = titx._txinfo(tx)
     res = np.empty((B, h, w), dtype=np.int64)
@@ -174,7 +174,9 @@ def test_frame_job_list(bd):
     rng = np.random.default_rng(77 + bd)
     arena, (offs, txs, tps, eobs), want = _frame(rng, bd)
     orig = arena.copy()
-    order, jobs, n_out = titx.job_table(offs, txs, tps, eobs, len(arena))
+    order, jobs, groups, n_out = titx.job_table(offs, txs, tps, eobs,
+                                                len(arena))
+    assert np.array_equal(groups, titx.group_list(jobs[:, titx.J_TX]))
     # sorted by (tx, txtp) then eob; offsets a prefix sum of h*w
     key = jobs[:, titx.J_TX].astype(np.int64) * 32 + jobs[:, titx.J_TXTP]
     assert (np.diff(key) >= 0).all()
@@ -184,7 +186,7 @@ def test_frame_job_list(bd):
     assert np.array_equal(jobs[:, titx.J_OUT], np.cumsum(sizes) - sizes)
     assert n_out == sum(sizes)
     out = titx.itx_frame(torch.from_numpy(arena), torch.from_numpy(jobs),
-                         n_out, bd)
+                         torch.from_numpy(groups), n_out, bd)
     assert out.dtype == (torch.int16 if bd <= 10 else torch.int32)
     assert np.array_equal(arena, orig)
     flat = out.numpy()
@@ -210,51 +212,92 @@ def test_job_table_checks():
         titx.job_table(**{**ok, "n_cf": 31})
     with pytest.raises(ValueError, match="outside the arena"):
         titx.job_table(**{**ok, "cf_off": [-1, 16]})
-    order, jobs, n_out = titx.job_table([], [], [], [], 0)
+    order, jobs, groups, n_out = titx.job_table([], [], [], [], 0)
     assert jobs.shape == (0, titx.JOB_COLS) and n_out == 0
+    assert groups.shape == (0, titx.GROUP_COLS)
 
 
 def test_wrapper_checks():
     cf = torch.zeros(64, dtype=torch.int32)
-    _, jobs, n_out = titx.job_table([0], [0], [0], [0], 64)
-    jobs = torch.from_numpy(jobs)
+    _, jobs, groups, n_out = titx.job_table([0], [0], [0], [0], 64)
+    jobs, groups = torch.from_numpy(jobs), torch.from_numpy(groups)
     with pytest.raises(ValueError, match="bitdepth"):
-        titx.itx_frame(cf, jobs, n_out, 9)
+        titx.itx_frame(cf, jobs, groups, n_out, 9)
     with pytest.raises(TypeError, match="cf"):
-        titx.itx_frame(cf.long(), jobs, n_out, 8)
+        titx.itx_frame(cf.long(), jobs, groups, n_out, 8)
     with pytest.raises(ValueError, match="jobs"):
-        titx.itx_frame(cf, jobs[:, :3].contiguous(), n_out, 8)
+        titx.itx_frame(cf, jobs[:, :3].contiguous(), groups, n_out, 8)
+    with pytest.raises(ValueError, match="groups"):
+        titx.itx_frame(cf, jobs, groups[:, :2].contiguous(), n_out, 8)
+    with pytest.raises(TypeError, match="groups"):
+        titx.itx_frame(cf, jobs, groups.long(), n_out, 8)
     with pytest.raises(ValueError, match="1-D"):
-        titx.itx_frame(cf.reshape(8, 8), jobs, n_out, 8)
-    assert titx.itx_frame(cf, jobs, n_out, 8).abs().max() == 0
+        titx.itx_frame(cf.reshape(8, 8), jobs, groups, n_out, 8)
+    assert titx.itx_frame(cf, jobs, groups, n_out, 8).abs().max() == 0
+
+
+# group rows (first, count, tx) that group_list cannot make for the
+# jobs of tx sizes 0, 0, 0, 1, 1 (4x4, 4x4, 4x4, 8x8, 8x8); the kernel
+# stops on them and the wrapper's CPU path raises
+BAD_GROUPS = {
+    "tx of another size": [[0, 3, 0], [3, 2, 2]],
+    "more than LANES / w": [[0, 3, 0], [3, 2, 4]],
+    "crossing a tx size": [[0, 4, 0], [4, 1, 1]],
+    "no jobs": [[0, 3, 0], [3, 0, 1], [3, 2, 1]],
+    "a job left out": [[0, 2, 0], [3, 2, 1]],
+    "a job twice": [[0, 3, 0], [2, 1, 0], [3, 2, 1]],
+    "tx out of range": [[0, 3, 0], [3, 2, 19]],
+}
+
+
+@pytest.mark.parametrize("bad", list(BAD_GROUPS))
+def test_wrapper_refuses_bad_groups(bad):
+    cf = torch.zeros(5 * 64, dtype=torch.int32)
+    _, jobs, groups, n_out = titx.job_table(np.arange(5) * 64,
+                                            [0, 0, 0, 1, 1], [0] * 5,
+                                            [0] * 5, len(cf))
+    jobs = torch.from_numpy(jobs)
+    assert groups.tolist() == [[0, 3, 0], [3, 2, 1]]
+    titx.itx_frame(cf, jobs, torch.from_numpy(groups), n_out, 8)
+    g = torch.tensor(BAD_GROUPS[bad], dtype=torch.int32)
+    if bad == "more than LANES / w":  # 64-wide jobs: one a group
+        g[1, titx.G_TX] = 4
+        jobs[3:, titx.J_TX] = 4
+    with pytest.raises(ValueError, match="groups"):
+        titx.itx_frame(cf, jobs, g, n_out, 8)
 
 
 _HARNESS = r"""
 #include <stdint.h>
+#include <string.h>
 #include "itx_core.cuh"
 
 template <typename T, typename O>
-static void run_job(const int* cf, const int* J, O* out, int bitdepth) {
-    static T tile[itx::TILE_ELEMS];
-    const itx::Geom g = itx::geom(J[itx::J_TX], J[itx::J_TXTP]);
+static void run_group(const int* cf, const int* jobs, const int* G, O* out,
+                      int bitdepth) {
+    static itx::Group<T> s;
+    memset(&s, 0x5A, sizeof s);  // shared memory starts undefined
+    const int first = G[itx::G_FIRST];
+    const itx::Size z = itx::size_of(G[itx::G_TX], G[itx::G_COUNT]);
     itx::Clip<T> rcl, ccl;
     itx::clips<T>(bitdepth, rcl, ccl);
-    const int nt = 64;  // the kernel's CTA; each loop is one phase
-    for (int t = 0; t < nt; t++) itx::load<T>(tile, cf + J[itx::J_CF], g, t, nt);
-    for (int t = 0; t < nt; t++) itx::rows<T>(tile, g, rcl, ccl, t, nt);
-    for (int t = 0; t < nt; t++) itx::cols<T>(tile, g, ccl, t, nt);
-    for (int t = 0; t < nt; t++)
-        itx::store<T, O>(tile, out + J[itx::J_OUT], g, t, nt);
+    const int nt = itx::LANES;  // the kernel's CTA; each loop is one phase
+    for (int t = 0; t < nt; t++) itx::setup<T>(s, jobs, first, z, t, nt);
+    for (int t = 0; t < nt; t++) itx::load<T>(s, cf, z, t, nt);
+    for (int t = 0; t < nt; t++) itx::rows<T>(s, z, rcl, ccl, t, nt);
+    for (int t = 0; t < nt; t++) itx::cols<T, O>(s, z, ccl, out, t, nt);
 }
 
-extern "C" void itx_frame_host(const int* cf, const int* jobs, int n_jobs,
-                               void* out, int bitdepth) {
-    for (int j = 0; j < n_jobs; j++) {
-        const int* J = jobs + j * itx::JOB_COLS;
+extern "C" void itx_frame_host(const int* cf, const int* jobs,
+                               const int* groups, int n_groups, void* out,
+                               int bitdepth) {
+    for (int g = 0; g < n_groups; g++) {
+        const int* G = groups + g * itx::GROUP_COLS;
         if (bitdepth == 12)
-            run_job<long long, int32_t>(cf, J, (int32_t*)out, bitdepth);
+            run_group<long long, int32_t>(cf, jobs, G, (int32_t*)out,
+                                          bitdepth);
         else
-            run_job<int, int16_t>(cf, J, (int16_t*)out, bitdepth);
+            run_group<int, int16_t>(cf, jobs, G, (int16_t*)out, bitdepth);
     }
 }
 """
@@ -263,7 +306,8 @@ extern "C" void itx_frame_host(const int* cf, const int* jobs, int n_jobs,
 @pytest.fixture(scope="module")
 def kernel_on_host(tmp_path_factory):
     """The kernel's arithmetic header built as host C++ (a ctypes
-    function running every job's four phases for 64 threads in turn)."""
+    function running every group's four phases for the CTA's 64 threads
+    in turn)."""
     cxx = shutil.which("c++") or shutil.which("g++")
     if cxx is None:
         pytest.skip("no C++ compiler")
@@ -277,20 +321,156 @@ def kernel_on_host(tmp_path_factory):
     assert r.returncode == 0, r.stderr[-3000:]
     lib = ctypes.CDLL(str(so))
     lib.itx_frame_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_int, ctypes.c_void_p,
-                                   ctypes.c_int]
+                                   ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_int]
     lib.itx_frame_host.restype = None
     return lib
+
+
+def _host_vs_plain(lib, arena, cols, bd):
+    """The job list through the host build of the kernel's phases and
+    through the plain version; both residual buffers."""
+    order, jobs, groups, n_out = titx.job_table(*cols, len(arena))
+    titx.check_groups(jobs[:, titx.J_TX], groups)  # the kernel's invariant
+    got = np.zeros(n_out, dtype=np.int16 if bd <= 10 else np.int32)
+    lib.itx_frame_host(arena.ctypes.data, jobs.ctypes.data,
+                       groups.ctypes.data, len(groups), got.ctypes.data, bd)
+    want = titx.itx_frame_plain(torch.from_numpy(arena),
+                                torch.from_numpy(jobs), n_out, bd).numpy()
+    return got, want
 
 
 @pytest.mark.parametrize("bd", [8, 10, 12])
 def test_kernel_source_on_host(kernel_on_host, bd):
     rng = np.random.default_rng(300 + bd)
-    arena, (offs, txs, tps, eobs), _ = _frame(rng, bd, per=2)
-    order, jobs, n_out = titx.job_table(offs, txs, tps, eobs, len(arena))
-    got = np.zeros(n_out, dtype=np.int16 if bd <= 10 else np.int32)
-    kernel_on_host.itx_frame_host(arena.ctypes.data, jobs.ctypes.data,
-                                  len(jobs), got.ctypes.data, bd)
-    want = titx.itx_frame_plain(torch.from_numpy(arena),
-                                torch.from_numpy(jobs), n_out, bd).numpy()
+    arena, cols, _ = _frame(rng, bd, per=2)
+    got, want = _host_vs_plain(kernel_on_host, arena, cols, bd)
     assert np.array_equal(got, want)
+
+
+SPARSE = ("rows 0, 1/3 and last", "last row, last column", "dc only",
+          "one middle row")
+
+
+def _sparse_frame(rng, bd, per=5):
+    """Sparse blocks of every valid pair, ``per`` of each pattern of
+    SPARSE (zero rows between nonzero rows; a lone coefficient in the last
+    column of the last coded row; DC only; one nonzero row in the middle),
+    shuffled, in an arena with gaps.  Per tx size the job count is no
+    multiple of the group size, so the last group of each size is partly
+    full and every size's last group ends where the tx size changes.
+    Returns (arena, (cf_off, tx, txtp, eob))."""
+    chunks, offs, txs, tps, eobs = [], [], [], [], []
+    pos = 0
+    for tx, txtp in PAIRS:
+        w, h, _, _ = titx._txinfo(tx)
+        sw, sh = min(w, 32), min(h, 32)
+        cmax = 1 << (bd + 1 if txtp == WHT else bd + 7)
+        for pat in range(len(SPARSE)):
+            for _ in range(per + (tx % 3 == 0)):
+                cf = np.zeros((sw, sh), np.int64)  # [x][y]
+                vals = rng.integers(-cmax, cmax, (sw, sh))
+                vals[vals == 0] = 1
+                if pat == 0:
+                    rows = [0, max(1, sh // 3), sh - 1]
+                    cf[:, rows] = vals[:, rows]
+                elif pat == 1:
+                    cf[sw - 1, sh - 1] = vals[0, 0]
+                elif pat == 2:
+                    cf[0, 0] = vals[0, 0]
+                else:
+                    y = int(rng.integers(1, sh - 1))
+                    cf[int(rng.integers(1, sw)), y] = vals[0, 0]
+                    cf[:, y] *= rng.random(sw) < 0.5
+                row = cf.reshape(-1).astype(np.int32)
+                gap = int(rng.integers(0, 5))
+                chunks += [np.zeros(gap, np.int32), row]
+                offs.append(pos + gap)
+                pos += gap + len(row)
+                txs.append(tx)
+                tps.append(txtp)
+                eobs.append(int(np.flatnonzero(row).max(initial=0)))
+    perm = rng.permutation(len(offs))
+    return (np.concatenate(chunks),
+            [np.asarray(c)[perm] for c in (offs, txs, tps, eobs)])
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_kernel_sparse_rows_on_host(kernel_on_host, bd):
+    """The row flags: only the flagged rows are transformed, and rows
+    after zero rows and coefficients beyond the first column flag their
+    row."""
+    rng = np.random.default_rng(500 + bd)
+    arena, cols = _sparse_frame(rng, bd)
+    got, want = _host_vs_plain(kernel_on_host, arena, cols, bd)
+    assert np.array_equal(got, want), \
+        f"mismatch at {np.flatnonzero(got != want)[:8]}"
+    assert np.count_nonzero(want) > len(cols[0])  # not a trivial frame
+
+
+def test_group_list_covers_jobs():
+    """Each job lands in exactly one group, no group mixes tx sizes, a
+    group holds at most LANES / w jobs and only the last group of a run
+    of one size is partly full."""
+    rng = np.random.default_rng(4)
+    for n in (0, 1, 17, 300, 2000):
+        tx = np.sort(rng.integers(0, titx.N_TX, n))
+        if n == 300:  # one long run
+            tx[:] = 0
+        g = titx.group_list(tx)
+        assert g.dtype == np.int32 and g.shape == (len(g), titx.GROUP_COLS)
+        first, cnt = g[:, titx.G_FIRST], g[:, titx.G_COUNT]
+        covered = np.repeat(first, cnt) + np.arange(cnt.sum()) \
+            - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        assert np.array_equal(covered, np.arange(n))
+        assert np.array_equal(g[:, titx.G_TX], tx[first])
+        for f, c in zip(first.tolist(), cnt.tolist()):
+            assert c >= 1 and len(set(tx[f:f + c].tolist())) == 1
+            w = titx._txinfo(int(tx[f]))[0]
+            assert c <= titx.LANES // w
+            end = f + c
+            if c < titx.LANES // w:
+                assert end == n or tx[end] != tx[f]
+    # on a frame's job table
+    arena, cols, _ = _frame(np.random.default_rng(5), 8, per=3)
+    _, jobs, groups, _ = titx.job_table(*cols, len(arena))
+    assert groups[:, titx.G_COUNT].sum() == len(jobs)
+    for f, c, t in groups.tolist():
+        assert set(jobs[f:f + c, titx.J_TX].tolist()) == {t}
+
+
+def _bank_ways(addrs):
+    """Shared-memory wavefronts of one warp's 32-bit accesses: the most
+    distinct words that fall in one of the 32 banks."""
+    banks = {}
+    for a in set(addrs):
+        banks.setdefault(a % 32, set()).add(a)
+    return max(len(v) for v in banks.values())
+
+
+@pytest.mark.parametrize("tx", range(19))
+def test_tile_bank_conflicts(tx):
+    """The tile layout's bank conflicts, counted per warp of a full group
+    at 32-bit elements (csrc/itx_core.cuh): the load's stores at most 2
+    ways (1 when the coded height is 32), the row pass (every row
+    flagged) at most 2, the column pass none."""
+    w, h, _, _ = titx._txinfo(tx)
+    sh = min(h, 32)
+    S, n = sh + 1, titx.LANES // w
+
+    def warps(count, addr):
+        return [_bank_ways([addr(i) for i in range(b, min(b + 32, count))])
+                for b in range(0, count, 32)]
+
+    def load(i):
+        j, k = divmod(i, w * sh)
+        x, y = divmod(k, sh)
+        return (j * w + x) * S + y
+
+    def row(r):
+        j, y = divmod(r, sh)
+        return j * w * S + y
+
+    assert max(warps(n * w * sh, load)) == (1 if sh == 32 else 2)
+    assert max(warps(n * sh, row)) <= 2
+    assert max(warps(n * w, lambda i: i * S)) == 1
