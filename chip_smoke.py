@@ -33,17 +33,32 @@ Phases; any failure exits non-zero:
    shuffled, in an arena with gaps, and sparse ones: zero rows between
    nonzero rows, a lone coefficient in the last column of the last
    coded row, DC only, partly full groups; the direction search also on
-   a plane of blocks whose costs tie), bit depths 8/10/12;
-4. decode the committed 1080p 8-bit inter stream (the main path) and the
-   committed 10-bit stream with ``Decoder(..., device="cuda")`` through
-   send_data/get_picture, and check the md5 of every output plane
-   against the committed md5 (the JAX package's host tier).  The launch
-   counts are zeroed just before the 1080p decode and read just after:
-   every filter-chain kernel must have launched at least once per
-   frame, the itx and direction kernels exactly once per frame and the
-   MC kernel at least once per inter frame;
-   the transform blocks of the itx kernel and the share of inter blocks
-   the MC kernel predicted are printed;
+   a plane of blocks whose costs tie; the super-res resample at the
+   1080p super-res stream's luma and chroma geometry (960 -> 1920,
+   480 -> 960) on random and extreme pixels, junk in the rows beyond the
+   frame; the Wiener and self-guided (variants 0, 1, 2) units on job
+   tables at the 1080p planes with unit widths 128/192/256/384 and
+   stripe heights 28/32/56/64 in all 16 edge combinations, on blocky
+   planes and on the pixels {0, 1, 2^bd-2, 2^bd-1}, where the
+   self-guided products are largest), bit depths 8/10/12;
+4. decode the committed 1080p 8-bit inter stream (the main path of the
+   earlier kernels), the committed 10-bit stream and the two committed
+   1080p loop-restoration streams (super-res + Wiener on every frame;
+   Wiener and, in the key frame, self-guided units) with
+   ``Decoder(..., device="cuda")`` through send_data/get_picture, and
+   check the md5 of every output plane against the committed md5 (the
+   JAX package's host tier).  The launch counts are zeroed just before
+   each decode and read just after: on the inter stream every
+   filter-chain kernel must have launched at least once per frame, the
+   itx and direction kernels exactly once per frame and the MC kernel at
+   least once per inter frame; on the restoration streams, frame by
+   frame, the resize kernel on every super-res frame, the Wiener kernel
+   on every frame with Wiener units, the self-guided kernel on the frame
+   with self-guided units, and on every frame with super-res or
+   restoration one upload of planes (the reconstructed ones) and no
+   ``chain.upload_final``; the transform blocks of the itx kernel, the
+   share of inter blocks the MC kernel predicted and the restoration
+   units are printed;
 5. time the 1080p decode (frames/s, best of 3 after the warm-up decode),
    then decode it once more with the stage spans and transfer counters
    on, capturing the MC, CDEF filter and itx kernels' real calls: each
@@ -71,6 +86,7 @@ The line before the last is the kernels' JSON report; the last line is
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import struct
@@ -84,6 +100,10 @@ ROOT = Path(__file__).resolve().parent
 DATA = ROOT / "dav1d_tpu_torch" / "data"
 MAIN_STREAM = "inter_1080p_8bit.ivf"
 HBD_STREAM = "hbd10_128x96.ivf"
+# super-res + Wiener on every frame; Wiener and self-guided units
+SR_STREAM = "superres_lr_1080p_8bit.ivf"
+LR_STREAM = "lr_1080p_8bit.ivf"
+LR_KERNELS = ("resize", "lr_wiener", "lr_sgr")
 
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -99,6 +119,12 @@ KERNELS = {
            "dav1d_tpu/ops/pallas_mc.py:164"),
     "itx": ("dav1d_tpu_torch/csrc/itx.cu",
             "dav1d_tpu/ops/pallas_itx.py:106"),
+    "resize": ("dav1d_tpu_torch/csrc/resize.cu",
+               "dav1d_tpu/ops/resize.py:24"),
+    "lr_wiener": ("dav1d_tpu_torch/csrc/lr.cu",
+                  "dav1d_tpu/ops/lr.py:22"),
+    "lr_sgr": ("dav1d_tpu_torch/csrc/lr.cu",
+               "dav1d_tpu/ops/lr.py:124"),
 }
 
 # the card's peak rates for the bounds (H100 SXM data sheet, at 700 W):
@@ -415,16 +441,95 @@ def _dir_ties(rng, H, W, bitdepth):
     return plane.reshape(nby * 8, nbx * 8)[:H, :W].astype(np.int32)
 
 
+def _sr_frame():
+    """The attributes decode/frame.superres_geometry reads, as the frames
+    of the 1080p super-res stream have them: 4:2:0, coded 960 wide
+    (bw = 240 4-px columns), upscaled to 1920."""
+    from types import SimpleNamespace
+
+    hdr = SimpleNamespace(width=(960, 1920), height=1080)
+    return SimpleNamespace(frame_hdr=hdr, ss_hor=1, ss_ver=1, bw=240)
+
+
+def _extremes(rng, H, W, bitdepth):
+    """8x8 blocks of the pixels {0, 1, 2^bd-2, 2^bd-1}: half near-flat
+    (0/1 or 2^bd-2/2^bd-1: the largest box sums with x_by_x near 255,
+    the largest self-guided A products), half mixed (the largest
+    variance terms p * s)."""
+    import numpy as np
+
+    hi = (1 << bitdepth) - 1
+    vals = np.array([0, 1, hi - 1, hi], np.int32)
+    nby, nbx = -(-H // 8), -(-W // 8)
+    mixed = rng.random((nby, nbx)) < 0.5
+    base = rng.integers(0, 2, (nby, nbx)) * 2
+
+    def up(a):
+        return np.repeat(np.repeat(a, 8, 0), 8, 1)[:H, :W]
+
+    pick = np.where(up(mixed), rng.integers(0, 4, (H, W)),
+                    up(base) + rng.integers(0, 2, (H, W)))
+    return vals[pick]
+
+
+# unit widths and stripe heights of the 1080p restoration streams: units
+# of 128 or 256 columns (up to 1.5 units at the right edge), stripes of
+# 64 rows (56 the first), 32 and 28 in chroma
+LR_UW = (128, 192, 256, 384)
+LR_SH = (28, 32, 56, 64)
+
+
+def _lr_jobs(rng, W, h, per, kind, variant=0):
+    """A job table (ops/lr.py job_table columns) of ``per`` units of each
+    (width, stripe height) of LR_UW x LR_SH, placed row by row with 4
+    pixels around each (so every edge combination reads inside the
+    plane), the 16 edge combinations spread over them; every second
+    unit's plane height ends just below its bottom context, where
+    min(y + sh + 1, h - 1) clamps.  Wiener: half filters in the
+    bitstream's ranges; self-guided: the strengths of a sgr_params
+    entry of ``variant``, weights in their ranges.  Returns (jobs, rows
+    the units take)."""
+    import numpy as np
+
+    from dav1d_tpu_torch import tables
+
+    geo = [(uw, sh) for uw in LR_UW for sh in LR_SH] * per
+    rows, x, y, row_h = [], 4, 4, 0
+    for i, (uw, sh) in enumerate(geo):
+        if x + uw + 4 > W:
+            x, y, row_h = 4, y + row_h + 8, 0
+        rows.append([x, y, uw, sh, i % 16, y + sh + 1 if i % 2 else h])
+        x += uw + 8
+        row_h = max(row_h, sh)
+    n = len(rows)
+    if kind == "w":
+        prm = [rng.integers(-5, 11, n), rng.integers(-23, 9, n),
+               rng.integers(-17, 47, n), rng.integers(-5, 11, n),
+               rng.integers(-23, 9, n), rng.integers(-17, 47, n)]
+    else:
+        s0, s1 = (int(v) for v in tables.sgr_params[
+            {2: 0, 0: 14, 1: 10}[variant]])
+        w0 = rng.integers(-96, 32, n)
+        prm = [np.full(n, s0), np.full(n, s1), w0,
+               128 - (w0 + rng.integers(-32, 96, n)), np.full(n, variant),
+               np.zeros(n, np.int64)]
+    jobs = np.concatenate([np.asarray(rows), np.stack(prm, 1)], 1)
+    return jobs.astype(np.int32), y + row_h + 4
+
+
 def make_cases(device, shapes=SHAPES, seed=0):
     """Kernel inputs at the main path's shapes for bit depths 8/10/12:
     {kernel: [(label, kernel_fn, plain_fn, args), ...]}."""
     import numpy as np
     import torch
 
+    from dav1d_tpu_torch.decode.frame import superres_geometry
     from dav1d_tpu_torch.ops import cdef as ocdef
     from dav1d_tpu_torch.ops import itx as oitx
     from dav1d_tpu_torch.ops import lf as olf
+    from dav1d_tpu_torch.ops import lr as olr
     from dav1d_tpu_torch.ops import mc as omc
+    from dav1d_tpu_torch.ops import resize as oresize
 
     rng = np.random.default_rng(seed)
 
@@ -499,6 +604,34 @@ def make_cases(device, shapes=SHAPES, seed=0):
         cases["itx"].append((
             f"194 pairs x 44 sparse bd{bd}", oitx.itx_frame,
             _itx_plain, _itx_sparse_args(rng, device, bd)))
+        # super-res: the coded planes (rows beyond the frame hold junk)
+        for pl, kind in ((0, "luma"), (1, "chroma")):
+            geo = superres_geometry(_sr_frame(), pl)
+            H, h, src_w = shapes[kind][0], geo[4], geo[1]
+            for label, px in (("", _plane(rng, H, src_w, bd)),
+                              (" extremes", _extremes(rng, H, src_w, bd))):
+                px[h:] = 1 << 20
+                cases["resize"].append((
+                    f"{kind} {src_w}->{geo[0]}{label} bd{bd}",
+                    oresize.resize_plane, oresize.resize_plane_plain,
+                    (dev(px), *geo, bd)))
+        # restoration: the planes' post-CDEF pixels and snapshot
+        for kind in ("luma", "chroma"):
+            H, W, h, _ = shapes[kind]
+            per = 4 if kind == "luma" else 1
+            for label, make in (("", _plane), (" extremes", _extremes)):
+                post, pre = (dev(make(rng, H, W, bd)) for _ in range(2))
+                jobs, used = _lr_jobs(rng, W, h, per, "w")
+                _require(used <= H, f"{kind}: units take {used} rows")
+                cases["lr_wiener"].append((
+                    f"{kind} {len(jobs)} units{label} bd{bd}", olr.wiener,
+                    olr.wiener_plain, (post, pre, dev(jobs), bd)))
+                for variant in (0, 1, 2):
+                    jobs, _ = _lr_jobs(rng, W, h, per, "s", variant)
+                    cases["lr_sgr"].append((
+                        f"{kind} {len(jobs)} units variant {variant}{label} "
+                        f"bd{bd}", olr.sgr, olr.sgr_plain,
+                        (post, pre, dev(jobs), bd)))
     return cases
 
 
@@ -847,7 +980,43 @@ def work(name, args):
         return nbytes, ops
     if name == "itx":
         return _itx_work(*args)
+    if name == "resize":
+        plane, out_w, src_w, _, _, h, alloc_w, _ = args
+        # reads: the source rectangle; writes: the whole output plane;
+        # per resampled pixel 8 multiply-adds (16), the rounding shift and
+        # the clip (3)
+        return 4 * (h * src_w + plane.shape[0] * alloc_w), 19 * h * out_w
+    if name in ("lr_wiener", "lr_sgr"):
+        return _lr_work(name, args[2])
     raise KeyError(name)
+
+
+def _lr_work(name, jobs):
+    """(bytes, operations) of a restoration launch, counted from below:
+    reads the units' pixels and their snapshot context rows (2 above with
+    a top edge, 2 below with a bottom edge), writes the units' pixels,
+    reads the job rows.  Wiener: a 7-tap horizontal sum (13 operations)
+    and its rounding and clip (4) per pixel of the (sh + 6)-row
+    intermediate, the same vertically per output pixel.  Self-guided,
+    per radius used: the horizontal box sums and square sums (7 / 13 per
+    element of (sh + 6) x (uw + 2)), the vertical sums (4 / 8) and the
+    (A, B) derivation (15) per (A, B) position (every row of sh + 2 for
+    the 3x3, odd rows for the 5x5), the weighted neighbourhood of A and
+    B and the correction (24 / 20 per output pixel); the blend and clip
+    (7 per output pixel)."""
+    j = jobs.long()
+    uw, sh, e = j[:, 2], j[:, 3], j[:, 4]
+    pix = uw * sh
+    ctx = uw * 2 * (((e & 4) > 0).long() + ((e & 8) > 0).long())
+    nbytes = 4 * int((2 * pix + ctx).sum()) + jobs.numel() * 4
+    if name == "lr_wiener":
+        return nbytes, int((17 * (sh + 6) * uw + 17 * pix).sum())
+    variant = j[:, 10]
+    wide = (sh + 6) * (uw + 2)
+    r1 = 7 * wide + 19 * (sh + 2) * (uw + 2) + 24 * pix
+    r2 = 13 * wide + 23 * ((sh + 2) // 2) * (uw + 2) + 20 * pix
+    ops = (variant != 0).long() * r1 + (variant != 1).long() * r2 + 7 * pix
+    return nbytes, int(ops.sum())
 
 
 def bound(name, args):
@@ -901,6 +1070,85 @@ def itx_occupancy():
             for bd, i in (("8/10-bit", 0), ("12-bit", 3))}
 
 
+class ChainLog:
+    """Frame by frame, what the device filter chain did during a decode:
+    a context that wraps recon/device_chain.filter_chain_device (frames
+    finish one after the other: Settings.n_threads is 0) and records for
+    each frame whether it uses super-res and loop restoration, the
+    kernel launches and restoration units it added (devrt.LAUNCHES,
+    devrt.COUNTS), the stage spans it entered and the bytes of each
+    plane upload (state.upload_planes) it made."""
+
+    def __enter__(self):
+        from dav1d_tpu_torch import devrt, state
+        from dav1d_tpu_torch.recon import device_chain
+
+        self.frames = []
+        self._saved = (device_chain.filter_chain_device, devrt.span,
+                       state.upload_planes)
+        chain, span, upload = self._saved
+        cur = {}
+
+        def logged_chain(f, device):
+            l0 = collections.Counter(devrt.LAUNCHES)
+            c0 = collections.Counter(devrt.COUNTS)
+            cur.update(spans=[], uploads=[])
+            chain(f, device)
+            hdr = f.frame_hdr
+            self.frames.append({
+                "resize": hdr.width[0] != hdr.width[1],
+                "lr": bool(f.restore_planes and (f.inloop_filters & 4)),
+                "launches": dict(devrt.LAUNCHES - l0),
+                "units": dict(devrt.COUNTS - c0), **cur})
+            cur.clear()
+
+        def logged_span(tag):
+            if "spans" in cur:
+                cur["spans"].append(tag)
+            return span(tag)
+
+        def logged_upload(planes, bitdepth, device):
+            out = upload(planes, bitdepth, device)
+            if "uploads" in cur:
+                cur["uploads"].append(sum(t.numel() for t in out)
+                                      * (1 if bitdepth == 8 else 2))
+            return out
+
+        device_chain.filter_chain_device = logged_chain
+        devrt.span, state.upload_planes = logged_span, logged_upload
+        return self
+
+    def __exit__(self, *exc):
+        from dav1d_tpu_torch import devrt, state
+        from dav1d_tpu_torch.recon import device_chain
+
+        (device_chain.filter_chain_device, devrt.span,
+         state.upload_planes) = self._saved
+        return False
+
+
+def check_lr_frames(name, frames, n):
+    """The restoration streams' frame-by-frame launch checks (phase 4)."""
+    _require(len(frames) == n, f"{name}: {len(frames)} chain runs for "
+             f"{n} frames")
+    for i, fr in enumerate(frames):
+        k, u = fr["launches"], fr["units"]
+        if fr["resize"]:
+            _require(k.get("resize", 0) >= 1, f"{name} frame {i}: super-res "
+                     f"without a resize launch: {k}")
+        if u.get("lr_wiener_units"):
+            _require(k.get("lr_wiener", 0) >= 1, f"{name} frame {i}: "
+                     f"Wiener units without a lr_wiener launch: {k}")
+        if u.get("lr_sgr_units"):
+            _require(k.get("lr_sgr", 0) >= 1, f"{name} frame {i}: "
+                     f"self-guided units without a lr_sgr launch: {k}")
+        if fr["resize"] or fr["lr"]:
+            _require("chain.upload_final" not in fr["spans"] and
+                     len(fr["uploads"]) == 1, f"{name} frame {i}: the "
+                     f"final planes went up again: spans {fr['spans']}, "
+                     f"plane uploads {fr['uploads']}")
+
+
 def main() -> int:
     import torch
 
@@ -952,7 +1200,8 @@ def main() -> int:
     print(f"  native C {native['lib']._name.rsplit('/', 1)[-1]} in "
           f"{native['s']:.1f} s", flush=True)
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "error")):
             print("  ptxas:", line.strip(), flush=True)
     occ = itx_occupancy()
     print(f"  itx kernel (64 threads a CTA): {occ}", flush=True)
@@ -979,6 +1228,8 @@ def main() -> int:
           f"{blocks.get('inter_blocks', 0)} inter blocks; itx kernel "
           f"transformed {blocks.get('itx_blocks', 0)} blocks", flush=True)
     for k, n in launches.items():
+        if k in LR_KERNELS:  # not on this stream: counted below
+            continue
         want = ninter if k == "mc" else nframes
         _require(n >= want, f"{k}: {n} launches, want >= {want} "
                  f"({nframes} frames, {ninter} inter)")
@@ -999,6 +1250,30 @@ def main() -> int:
     _require(hbd["cdef_filter"] > 0, "10-bit decode ran no CDEF kernel")
     _require(hbd["mc"] > 0, "10-bit decode ran no MC kernel")
     _require(hbd["itx"] > 0, "10-bit decode ran no itx kernel")
+    lr_frames = {}
+    for name in (SR_STREAM, LR_STREAM):
+        devrt.LAUNCHES.clear()
+        devrt.COUNTS.clear()
+        with ChainLog() as log:
+            n_lr, _ = decode_checked(name, device)
+        got = {k: devrt.LAUNCHES[k] for k in KERNELS}
+        print(f"  launches in the {name} decode: {got}; counts "
+              f"{dict(devrt.COUNTS)}", flush=True)
+        for i, fr in enumerate(log.frames):
+            print(f"    frame {i}: super-res {fr['resize']}, restoration "
+                  f"{fr['lr']}, launches {fr['launches']}, units "
+                  f"{fr['units']}, plane uploads {fr['uploads']} B",
+                  flush=True)
+        check_lr_frames(name, log.frames, n_lr)
+        if name == SR_STREAM:
+            _require(all(fr["resize"] for fr in log.frames),
+                     f"{SR_STREAM}: a frame without super-res")
+        lr_frames[name] = n_lr
+        for k in LR_KERNELS:
+            launches[k] = launches.get(k, 0) + got[k]
+    _require(launches["lr_sgr"] >= 1, f"{LR_STREAM}: no lr_sgr launch")
+    _require(launches["resize"] >= lr_frames[SR_STREAM],
+             f"{SR_STREAM}: {launches['resize']} resize launches")
 
     print("== 5. timing", flush=True)
     runs = []
@@ -1029,7 +1304,7 @@ def main() -> int:
     # the least device time per frame of each kernel on the decode's own
     # calls (compare with tools/torch_decode_profile.py's device times)
     frame_bound = {k: sum(bound(k, a)[0] for name, a in calls if name == k)
-                   / n for k in KERNELS}
+                   / n for k in KERNELS if k not in LR_KERNELS}
     print(f"  bound per frame on the decode's calls (ms): "
           f"{ {k: round(v, 5) for k, v in frame_bound.items()} }",
           flush=True)
@@ -1077,7 +1352,72 @@ def main() -> int:
         errs["itx"] = max(errs["itx"], e)
     _require(errs["itx"] == 0, "itx disagrees with its plain version on "
              "the decode's calls")
+    # the restoration streams: frames/s, stages and transfers, and every
+    # resize / Wiener / self-guided call of one decode against the plain
+    # version
+    from dav1d_tpu_torch.ops import lr as olr
+    from dav1d_tpu_torch.ops import resize as oresize
+
+    plain_of = {"resize": oresize.resize_plane_plain,
+                "lr_wiener": olr.wiener_plain, "lr_sgr": olr.sgr_plain}
+    kernel_of = {"resize": oresize.resize_plane, "lr_wiener": olr.wiener,
+                 "lr_sgr": olr.sgr}
+    lr_calls = {k: [] for k in LR_KERNELS}
+    lr_report = {}
+    for name in (SR_STREAM, LR_STREAM):
+        sdata = (DATA / name).read_bytes()
+        sruns = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sn, _, _ = decode(sdata, device, hashing=False)
+            sruns.append(sn / (time.perf_counter() - t0))
+        devrt.SPANS, devrt.XFER, devrt.SINK = {}, {"up": 0, "down": 0}, []
+        t0 = time.perf_counter()
+        sn, _, _ = decode(sdata, device, hashing=False)
+        swall = time.perf_counter() - t0
+        sspans, sxfer, ssink = devrt.SPANS, devrt.XFER, devrt.SINK
+        devrt.SPANS = devrt.XFER = devrt.SINK = None
+        scalls = [(tag, args) for tag, _, args, _ in ssink
+                  if tag in LR_KERNELS]
+        sbound = {k: sum(bound(k, a)[0] for t, a in scalls if t == k) / sn
+                  for k in LR_KERNELS}
+        lr_report[name] = {
+            "fps": max(sruns), "fps_runs": sruns,
+            "wall_ms_per_frame": swall * 1e3 / sn,
+            "stage_ms_per_frame": {k: round(v * 1e3 / sn, 3)
+                                   for k, v in sorted(sspans.items())},
+            "xfer_bytes_per_frame": {k: v // sn for k, v in sxfer.items()},
+            "bound_ms_per_frame": sbound}
+        print(f"  {name}: {max(sruns):.3f} frames/s (best of 3 after the "
+              f"warm-up decode; runs {[round(r, 3) for r in sruns]}) on "
+              f"{card}", flush=True)
+        print(f"  {name} per frame: wall {swall * 1e3 / sn:.3f} ms, stages "
+              f"(ms) {lr_report[name]['stage_ms_per_frame']}, upload "
+              f"{sxfer['up'] // sn} B, download {sxfer['down'] // sn} B; "
+              f"bound (ms) { {k: round(v, 5) for k, v in sbound.items()} }",
+              flush=True)
+        for i, (tag, args) in enumerate(scalls):
+            e = _max_abs_err(kernel_of[tag](*args), plain_of[tag](*args))
+            what = (f"{tuple(args[0].shape)} -> {args[1]} wide"
+                    if tag == "resize" else f"{args[2].shape[0]} units "
+                    f"on {tuple(args[0].shape)}")
+            print(f"  {tag} {name} call {i}: {what}, max_abs_err={e}",
+                  flush=True)
+            errs[tag] = max(errs[tag], e)
+            lr_calls[tag].append((name, args))
+    for k in LR_KERNELS:
+        _require(lr_calls[k], f"the traced decodes made no {k} call")
+        _require(errs[k] == 0, f"{k} disagrees with its plain version on "
+                 "the decodes' calls")
+
     timed = {name: items[0] for name, items in cases.items()}
+    name, big = max(lr_calls["resize"], key=lambda c: c[1][0].numel())
+    timed["resize"] = (f"{name} luma call {tuple(big[0].shape)}",
+                       oresize.resize_plane, oresize.resize_plane_plain, big)
+    for k in ("lr_wiener", "lr_sgr"):
+        name, big = max(lr_calls[k], key=lambda c: c[1][2].shape[0])
+        timed[k] = (f"{name} call of {big[2].shape[0]} units "
+                    f"{tuple(big[0].shape)}", kernel_of[k], plain_of[k], big)
     big = max(mc_calls, key=lambda a: a[4])
     timed["mc"] = (f"1080p inter frame of the decode ({big[2].shape[0]} "
                    f"jobs)", omc.put_8tap_resident,
@@ -1135,6 +1475,7 @@ def main() -> int:
                       "bound_ms_per_frame": frame_bound,
                       "mc_tile_list_host_ms_per_frame": tl_ms,
                       "itx_calls": itx_stats, "itx_occupancy": occ,
+                      "restoration_streams": lr_report,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -675,8 +675,8 @@ def decode_frame_pass1(f: FrameContext, tile_groups,
 
 def decode_frame_finish(f: FrameContext) -> None:
     """Pass 2 (prediction replay + residuals, with the batched MC on
-    ``f.device``) and the in-loop filter chain: deblock -> CDEF on
-    ``f.device``, then super-res and loop restoration on the host
+    ``f.device``) and the in-loop filter chain, deblock -> CDEF ->
+    super-res -> loop restoration, all on ``f.device``
     (recon/device_chain.py); deferred behind pass 1 of subsequent frames
     when frames are in flight (Settings.max_frame_delay)."""
     from .. import devrt
@@ -734,21 +734,3 @@ def superres_geometry(f, pl):
     mx0 = (_cdiv(-((out_w - in_w) << 13) + (out_w >> 1), out_w) + 128
            - _cdiv(err, 2)) & 0x3FFF
     return out_w, src_w, step, mx0, h, (out_w + 127) & ~127
-
-
-def _superres_frame(f: FrameContext, planes):
-    """Upscale all planes horizontally (reference resize_c via
-    backup_lpf/filter_sbrow_resize; step/start per src/decode.c:3524-3539)."""
-    from ..recon.mc_np import resize_row
-
-    from ..bufpool import take as _take
-    out_planes = []
-    for pl, p in enumerate(planes):
-        out_w, src_w, step, mx0, h, alloc_w = superres_geometry(f, pl)
-        dst = _take((p.shape[0], alloc_w), np.int32)
-        dst[h:, :] = 0
-        dst[:h, out_w:] = 0
-        dst[:h, :out_w] = resize_row(p[:h, :src_w], out_w, src_w, step,
-                                     mx0, f.bitdepth)
-        out_planes.append(dst)
-    return out_planes

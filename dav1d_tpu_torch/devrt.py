@@ -19,9 +19,10 @@ kernel launch through :func:`launch`, every upload through
   each decode stage (pass1, pass2, chain and their parts) under its tag;
 * ``COUNTS``: work counted by the stages, always on: ``inter_blocks``
   (inter blocks of the decoded frames), ``mc_blocks`` (the blocks
-  whose predictions the batched MC stage computed on the device) and
+  whose predictions the batched MC stage computed on the device),
   ``itx_blocks`` (the transform blocks whose residuals the itx stage
-  computed).
+  computed), ``lr_wiener_units`` and ``lr_sgr_units`` (the stripe units
+  the loop-restoration stage filtered).
 """
 
 from __future__ import annotations

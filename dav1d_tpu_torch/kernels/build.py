@@ -122,6 +122,11 @@ _SIGNATURES = {
     "dtpu_itx_frame": [_P, _P, _P, _I, _P, _I, _P],
     # out[6]: registers, static shared bytes, CTAs per SM (8/10, 12-bit)
     "dtpu_itx_occupancy": [_P],
+    # src, src_stride, src_w, h, out, out_rows, out_stride, out_w, step,
+    # mx0, bitdepth, stream
+    "dtpu_resize": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P],
+    # post, pre, out, H, W, jobs, n_jobs, sgr, bitdepth, stream
+    "dtpu_lr": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
 }
 
 

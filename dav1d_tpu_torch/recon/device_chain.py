@@ -2,29 +2,37 @@
 dav1d_tpu/recon/device_chain.filter_chain_device).
 
 The reconstructed planes are uploaded once per frame in their narrow
-storage dtype and widened to int32 on the device; deblock (all vertical
-edges, then all horizontal edges, per plane) and CDEF (direction search
-on the resident luma, then the filter per plane) run on the resident
-tensors; the result is downloaded once, narrow, into ``f.planes``.
-Reference flow: dav1d_loopfilter_sbrow_* -> dav1d_cdef_brow
-(src/lf_apply_tmpl.c:313, src/cdef_apply_tmpl.c:40); the equivalence of
+storage dtype and widened to int32 on the device; every stage runs on
+the resident tensors, in the reference order:
+
+1. deblock (all vertical edges, then all horizontal edges, per plane);
+2. with loop restoration on, the post-deblock planes are kept as the
+   pre-CDEF snapshot (the reference's lpf line buffer, dav1d_copy_lpf,
+   src/lf_apply_tmpl.c:104): a reference, not a copy, since deblock and
+   CDEF return new tensors;
+3. CDEF (direction search on the resident luma, then the filter per
+   plane);
+4. super-res (ops/resize.py) of the planes and of the snapshot, into
+   allocation-sized planes of the upscaled width;
+5. loop restoration (ops/lr.py): the stripe geometry from
+   recon/lr_apply.lr_frame(f, geom_sink=), one Wiener and one
+   self-guided launch per plane, into new planes.
+
+The result is downloaded once, narrow: into ``f.planes``, or with
+super-res into new ``f.sr_planes`` (int32, allocation-sized, zero beyond
+the upscaled width), leaving ``f.planes`` at the coded width.  Reference
+flow: dav1d_loopfilter_sbrow_* -> dav1d_cdef_brow -> resize ->
+dav1d_lr_sbrow (src/lf_apply_tmpl.c:313, src/cdef_apply_tmpl.c:40,
+src/recon_tmpl.c:2053, src/lr_apply_tmpl.c:108); the equivalence of
 the full-frame formulation is argued in dav1d_tpu/recon/lf.py and
 recon/cdef.py.
-
-Super-res and loop restoration are not ported to the device yet: for a
-frame that uses them the post-deblock planes come down as ``f.pre_cdef``
-and the host forms (decode/frame._superres_frame, recon/lr_apply.lr_frame)
-finish the chain, in the order of the reference's host chain
-(dav1d_tpu/decode/frame.decode_frame_finish).
 
 The frame's final planes stay on the device as ``f._dev_planes`` (int32,
 allocation-sized), which the decoder binds into the reference slots the
 frame refreshes: the MC of later frames reads them there
 (pipeline._launch_mc_device; reference recon/device_chain.py:319-323).
-They equal the host's final planes pixel for pixel: where a host stage
-changed the planes after the download (super-res, loop restoration), or
-where the chain did not run (neither deblock nor CDEF), the final host
-planes go up instead.
+Where no stage runs, the host planes are the final ones and go up as
+they are.
 Nothing here catches a device failure: an error in a kernel raises out
 of the decode.
 """
@@ -35,10 +43,12 @@ import numpy as np
 import torch
 
 from .. import devrt, state
-from ..decode.frame import _superres_frame
+from ..decode.frame import superres_geometry
 from ..headers import PixelLayout
 from ..ops import cdef as ocdef
 from ..ops import lf as olf
+from ..ops import lr as olr
+from ..ops import resize as oresize
 from .cdef import cdef_collect
 from .lf import _collect_edges, _fix_tile_boundaries
 from .lr_apply import lr_frame
@@ -113,12 +123,46 @@ def _cdef(f, dev):
             f.layout == PixelLayout.I422)
 
 
+def _resize(f, dev):
+    """Super-res of each resident plane, in the allocation geometry of
+    decode/frame.superres_geometry (reference recon/device_chain.py
+    _resize_resident)."""
+    return [devrt.call("resize", oresize.resize_plane, p,
+                       *superres_geometry(f, pl), f.bitdepth)
+            for pl, p in enumerate(dev)]
+
+
+def _lr(f, dev, pre):
+    """Loop restoration of the resident planes from the post-CDEF planes
+    ``dev`` and the snapshot ``pre`` (reference recon/device_chain.py
+    _lr_resident): per plane, the Wiener units and then the self-guided
+    units, written into one new plane."""
+    geom = {}
+    lr_frame(f, geom_sink=geom)
+    dev = list(dev)
+    for pl in range(len(dev)):
+        wj, sj = olr.job_tables(geom, pl)
+        if not (len(wj) or len(sj)):
+            continue
+        devrt.COUNTS["lr_wiener_units"] += len(wj)
+        devrt.COUNTS["lr_sgr_units"] += len(sj)
+        jobs = devrt.upload(np.concatenate([wj, sj]), dev[pl].device)
+        out = None
+        if len(wj):
+            out = devrt.call("lr_wiener", olr.wiener, dev[pl], pre[pl],
+                             jobs[:len(wj)], f.bitdepth)
+        if len(sj):
+            out = devrt.call("lr_sgr", olr.sgr, dev[pl], pre[pl],
+                             jobs[len(wj):], f.bitdepth, out=out)
+        dev[pl] = out
+    return dev
+
+
 def filter_chain_device(f, device) -> None:
-    """The frame's in-loop filter chain: deblock -> CDEF on
-    ``device``-resident planes (the planes go up only when one of them
-    is on), then super-res and loop restoration on the host.  Leaves the
-    final planes resident as ``f._dev_planes`` when the frame refreshes
-    a reference slot."""
+    """The frame's in-loop filter chain on ``device``-resident planes:
+    deblock -> CDEF -> super-res -> loop restoration (the planes go up
+    only when one of them is on).  Leaves the final planes resident as
+    ``f._dev_planes`` when the frame refreshes a reference slot."""
     hdr = f.frame_hdr
     seq = f.seq_hdr
     lf = hdr.loopfilter
@@ -128,47 +172,45 @@ def filter_chain_device(f, device) -> None:
         and (any(hdr.cdef.y_strength) or any(hdr.cdef.uv_strength)) \
         and (f.inloop_filters & 2)
     do_lr = f.restore_planes and (f.inloop_filters & 4)
-
-    f.pre_cdef = None
-    dev = None
-    if do_deblock or do_cdef:
-        with devrt.span("chain.upload"):
-            dev = state.upload_planes(f.planes, f.bitdepth, device)
-        if do_deblock:
-            with devrt.span("chain.deblock"):
-                _deblock(f, dev)
-        cast = devrt.narrow_cast(f.bitdepth)
-        if do_lr:
-            # post-deblock / pre-CDEF snapshot for the LR stripe reads
-            # (reference dav1d_copy_lpf, src/lf_apply_tmpl.c:104): the
-            # whole buffer, padding included
-            f.pre_cdef = [devrt.fetch(cast(p)).astype(np.int32)
-                          for p in dev]
-        if do_cdef:
-            with devrt.span("chain.cdef"):
-                _cdef(f, dev)
-        # download in the narrow storage dtype: every stage clips into
-        # [0, 2^bd), so the cast is exact (the first download waits for
-        # the chain's kernels)
-        with devrt.span("chain.download"):
-            for pl in range(len(f.planes)):
-                f.planes[pl][:, :] = devrt.fetch(cast(dev[pl]))
-    elif do_lr:
-        f.pre_cdef = [p.copy() for p in f.planes]
+    do_resize = hdr.width[0] != hdr.width[1]
 
     f.sr_planes = f.planes
-    if hdr.width[0] != hdr.width[1]:
-        f.sr_planes = _superres_frame(f, f.planes)
-        if f.pre_cdef is not None:
-            f.pre_cdef = _superres_frame(f, f.pre_cdef)
-    if do_lr:
-        lr_frame(f)
-
     f._dev_planes = None
-    if hdr.refresh_frame_flags:
-        if dev is None or f.sr_planes is not f.planes or do_lr:
-            # the device planes are not the final ones (or there are
-            # none): the final host planes go up
+    if not (do_deblock or do_cdef or do_resize or do_lr):
+        if hdr.refresh_frame_flags:
+            # the host planes are final
             with devrt.span("chain.upload_final"):
-                dev = state.upload_planes(f.sr_planes, f.bitdepth, device)
+                f._dev_planes = state.upload_planes(f.planes, f.bitdepth,
+                                                    device)
+        return
+    with devrt.span("chain.upload"):
+        dev = state.upload_planes(f.planes, f.bitdepth, device)
+    if do_deblock:
+        with devrt.span("chain.deblock"):
+            _deblock(f, dev)
+    # the snapshot holds references: deblock and CDEF write new tensors
+    pre = list(dev) if do_lr else None
+    if do_cdef:
+        with devrt.span("chain.cdef"):
+            _cdef(f, dev)
+    if do_resize:
+        with devrt.span("chain.resize"):
+            dev = _resize(f, dev)
+            if pre is not None:
+                pre = _resize(f, pre)
+    if do_lr:
+        with devrt.span("chain.lr"):
+            dev = _lr(f, dev, pre)
+    # download in the narrow storage dtype: every stage clips into
+    # [0, 2^bd), so the cast is exact (the first download waits for the
+    # chain's kernels)
+    cast = devrt.narrow_cast(f.bitdepth)
+    with devrt.span("chain.download"):
+        if do_resize:
+            f.sr_planes = [devrt.fetch(cast(p)).astype(np.int32)
+                           for p in dev]
+        else:
+            for pl in range(len(f.planes)):
+                f.planes[pl][:, :] = devrt.fetch(cast(dev[pl]))
+    if hdr.refresh_frame_flags:
         f._dev_planes = dev

@@ -379,53 +379,17 @@ def put_bilin_scaled(plane, valid_w, valid_h, top, left, w, h, mx, my,
     return out.astype(np.int32)
 
 
-def resize_row_ref(src_rows, dst_w, src_w, dx, mx0, bitdepth):
-    """Scalar-stepped horizontal super-res upscale of (n, src_w) rows to
-    (n, dst_w) (reference resize_c, src/mc_tmpl.c) — the golden model the
-    vectorized forms are parity-tested against."""
-    rf = tables.resize_filter.astype(np.int64)
-    out = np.empty((src_rows.shape[0], dst_w), dtype=np.int64)
-    mx, src_x = mx0, -1
-    for x in range(dst_w):
-        F = rf[mx >> 8]
-        cols = np.clip(np.arange(src_x - 3, src_x + 5), 0, src_w - 1)
-        acc = -(src_rows[:, cols].astype(np.int64) @ F)
-        out[:, x] = (acc + 64) >> 7
-        mx += dx
-        src_x += mx >> 14
-        mx &= 0x3FFF
-    return np.clip(out, 0, (1 << bitdepth) - 1).astype(np.int32)
-
-
 def resize_coords(dst_w, src_w, dx, mx0):
     """Closed form of resize_c's per-column stepping: at column x the
     accumulated phase is mx0 + x*dx, whose high bits are the source
     column advance and whose low 14 bits select the subpel filter.
     Returns (cols (dst_w, 8) clamped gather indices, filter rows index
-    (dst_w,)) — shared by the numpy and the device kernels."""
+    (dst_w,)) — the plain version of ops/resize.py gathers with them."""
     mxs = mx0 + np.arange(dst_w, dtype=np.int64) * dx
     fi = ((mxs & 0x3FFF) >> 8).astype(np.int32)
     sx = (mxs >> 14) - 1
     cols = np.clip(sx[:, None] + np.arange(-3, 5), 0, src_w - 1)
     return cols.astype(np.int32), fi
-
-
-def resize_row(src_rows, dst_w, src_w, dx, mx0, bitdepth):
-    """Horizontal super-res upscale of (n, src_w) rows to (n, dst_w)
-    (reference resize_c, src/mc_tmpl.c), vectorized over whole row
-    bands.  |tap| < 2^7 and px < 2^12 bound the 8-tap dot by 2^23, so
-    int32 accumulation is exact."""
-    rf = tables.resize_filter.astype(np.int32)
-    cols, fi = resize_coords(dst_w, src_w, dx, mx0)
-    F = rf[fi]                               # (dst_w, 8)
-    n = src_rows.shape[0]
-    out = np.empty((n, dst_w), dtype=np.int32)
-    step = max(1, (1 << 22) // max(1, dst_w * 8))   # ~32 MB gather bands
-    for y0 in range(0, n, step):
-        g = src_rows[y0 : y0 + step, cols]   # (band, dst_w, 8)
-        acc = -(g.astype(np.int32) * F).sum(axis=2, dtype=np.int32)
-        out[y0 : y0 + step] = (acc + 64) >> 7
-    return np.clip(out, 0, (1 << bitdepth) - 1, out=out)
 
 
 _WARP_FILTER_I64 = None

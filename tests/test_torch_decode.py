@@ -2,8 +2,10 @@
 (device="cpu", so its itx, MC and filter chain run the plain PyTorch
 versions of the kernels) against the JAX package, bit-exact.
 
-* the four tests/test_device_e2e.CASES streams (inter tools, film grain
-  + restoration, 10-bit, super-res + restoration): the port's md5 equals
+* the four tests/test_device_e2e.CASES streams (inter tools, film grain,
+  10-bit, super-res + restoration; the grain stream holds no restoration
+  unit, whatever tests/test_device_e2e.py's comment says): the port's md5
+  equals
   the JAX host tier's (DAV1D_TPU_DEVICE=0), the JAX chain-on tier's
   (DAV1D_TPU_DEVICE=1 with MC, itx and intra on the host) and the JAX
   MC-on tier's (DAV1D_TPU_DEVICE=1 with itx and intra on the host); on
@@ -20,9 +22,13 @@ versions of the kernels) against the JAX package, bit-exact.
   selection takes: kitchen, grain and hbd10.  superres_lr has none: with
   super-res on every frame, each reference's upscaled width differs from
   the coded width, so every reference counts as scaled;
-* the committed 10-bit smoke stream decodes to its committed md5, with
-  164 transform blocks through the itx stage and 11 of its 12 inter
-  blocks predicted by the MC stage;
+* every committed smoke stream decodes to its committed md5, with its
+  transform blocks through the itx stage, its inter blocks predicted by
+  the MC stage and its loop-restoration units filtered, counted (the
+  10-bit stream: 164 transform blocks, 11 of its 12 inter blocks; the
+  1080p super-res stream: 642 Wiener units, every frame upscaled, no MC
+  block, since every reference is scaled; the 1080p restoration stream:
+  327 Wiener and 16 self-guided units);
 * in a subprocess, the port imports and decodes the committed 10-bit
   stream to its md5 and imports no jax: once with jax unimportable, and
   once with jax importable and the JAX package's dispatch reporting an
@@ -42,6 +48,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from dav1d_tpu.containers import read_ivf
 from dav1d_tpu.dispatch import use_device
@@ -153,10 +160,18 @@ def _port_md5(data):
     from dav1d_tpu_torch.decoder import Decoder, Settings
 
     devrt.COUNTS.clear()
-    with _device_env(), _refusing_dispatch() as asked, \
-            _meta_rows_seen() as seen:
-        got = _md5(Decoder(Settings(two_pass=True, max_frame_delay=4),
-                           device="cpu"), data)
+    # one intra-op thread: the suite's workers share the machine's cores,
+    # and torch's thread pools in each of them oversubscribe those (a
+    # 1080p decode took ~20x longer there than alone)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with _device_env(), _refusing_dispatch() as asked, \
+                _meta_rows_seen() as seen:
+            got = _md5(Decoder(Settings(two_pass=True, max_frame_delay=4),
+                               device="cpu"), data)
+    finally:
+        torch.set_num_threads(threads)
     assert asked == [], f"the port consulted dav1d_tpu.dispatch: {asked}"
     assert devrt.COUNTS["itx_blocks"] == seen[0] > 0, (
         devrt.COUNTS["itx_blocks"], seen[0])
@@ -223,17 +238,39 @@ def test_port_matches_jax_tiers(name):
         assert counts.get("mc_blocks", 0) == 0, counts
 
 
-def test_committed_stream_md5():
+# what each committed stream's decode counts (devrt.COUNTS)
+COMMITTED = {
+    # 164 transform blocks with coefficients; two inter frames: 12 inter
+    # blocks, 11 of them plain translational single-reference blocks the
+    # MC stage predicts
+    "hbd10_128x96.ivf": {"itx_blocks": 164, "inter_blocks": 12,
+                         "mc_blocks": 11},
+    "inter_1080p_8bit.ivf": {"itx_blocks": 25444, "inter_blocks": 3489,
+                             "mc_blocks": 3324},
+    # Wiener on every plane of every frame (106 + 181 + 204 + 151 stripe
+    # units); every reference scaled, so no MC block on the device
+    "superres_lr_1080p_8bit.ivf": {"itx_blocks": 15819,
+                                   "inter_blocks": 2416,
+                                   "lr_wiener_units": 642,
+                                   "lr_sgr_units": 0},
+    # 168 + 16 + 55 + 104 stripe units; the 16 of the key frame's V plane
+    # self-guided (the mixed variant)
+    "lr_1080p_8bit.ivf": {"itx_blocks": 23361, "inter_blocks": 2491,
+                          "mc_blocks": 2337, "lr_wiener_units": 327,
+                          "lr_sgr_units": 16},
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMMITTED))
+def test_committed_stream_md5(name):
     from dav1d_tpu_torch import devrt
 
-    want = json.loads((DATA / "md5.json").read_text())["hbd10_128x96.ivf"]
-    n, md5 = _port_md5((DATA / "hbd10_128x96.ivf").read_bytes())
+    assert sorted(json.loads((DATA / "md5.json").read_text())) == \
+        sorted(COMMITTED)
+    want = json.loads((DATA / "md5.json").read_text())[name]
+    n, md5 = _port_md5((DATA / name).read_bytes())
     assert (n, md5) == (want["frames"], want["md5"])
-    # its 164 transform blocks with coefficients; its two inter frames:
-    # 12 inter blocks, 11 of them plain translational single-reference
-    # blocks the MC stage predicts
-    assert dict(devrt.COUNTS) == {"itx_blocks": 164, "inter_blocks": 12,
-                                  "mc_blocks": 11}
+    assert dict(devrt.COUNTS) == COMMITTED[name]
 
 
 def test_import_state_continues_with_device_mc():

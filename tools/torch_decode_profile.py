@@ -1,8 +1,12 @@
 """Where the time goes in a dav1d_tpu_torch decode on a CUDA card.
 
-Decodes the committed 1080p stream (dav1d_tpu_torch/data/) once to warm
-up, then once under torch.profiler (CPU + CUDA activity), and prints:
+Decodes a committed stream (dav1d_tpu_torch/data/; default the 1080p
+inter stream) once to warm up, once with the stage spans and transfer
+counters on, then once under torch.profiler (CPU + CUDA activity), and
+prints:
 
+* the stage spans (host ms per frame) and the bytes uploaded and
+  downloaded per frame;
 * wall ms per frame of the profiled decode;
 * device time per kernel / memcpy name (self device time, summed), per
   frame and per call;
@@ -14,31 +18,52 @@ up, then once under torch.profiler (CPU + CUDA activity), and prints:
 Like chip_smoke.py it fails if the decode imported jax.  Run from the
 repository root; with a path argument the chrome trace is written there:
 
-    python3 tools/torch_decode_profile.py [trace.json]
+    python3 tools/torch_decode_profile.py [--stream NAME] [--tree DIR]
+        [trace.json]
+
+``--tree DIR``: decode with the package and chip_smoke.py of another
+checkout (an unpacked parent commit, to compare two versions on one
+card); the stream is still read from this checkout's data directory.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
-
-import chip_smoke  # noqa: E402
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--stream", default="inter_1080p_8bit.ivf")
+    ap.add_argument("--tree", type=Path, default=ROOT)
+    ap.add_argument("trace", nargs="?")
+    opt = ap.parse_args()
+    sys.path.insert(0, str(opt.tree.resolve()))
+    import chip_smoke
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
+    from dav1d_tpu_torch import devrt
+
+    print(f"tree {opt.tree}, stream {opt.stream}")
     device = torch.device("cuda", 0)
-    data = (chip_smoke.DATA / chip_smoke.MAIN_STREAM).read_bytes()
+    data = (ROOT / "dav1d_tpu_torch" / "data" / opt.stream).read_bytes()
     chip_smoke.decode(data, device, hashing=False)  # warm-up + build
+    devrt.SPANS, devrt.XFER = {}, {"up": 0, "down": 0}
+    n, _, _ = chip_smoke.decode(data, device, hashing=False)
+    stages = {k: round(v * 1e3 / n, 3) for k, v in sorted(devrt.SPANS.items())}
+    print(f"stages (host ms per frame): {stages}")
+    print(f"bytes per frame: upload {devrt.XFER['up'] // n}, download "
+          f"{devrt.XFER['down'] // n}")
+    devrt.SPANS = devrt.XFER = None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -46,9 +71,9 @@ def main() -> int:
         n, _, _ = chip_smoke.decode(data, device, hashing=False)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    if len(sys.argv) > 1:
-        Path(sys.argv[1]).parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(sys.argv[1])
+    if opt.trace:
+        Path(opt.trace).parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(opt.trace)
 
     from torch.autograd import DeviceType
 

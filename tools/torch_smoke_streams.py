@@ -7,13 +7,21 @@ streams and their expected md5s are made here and committed:
 - ``inter_1080p_8bit.ivf``: bench.py's 1080p 8-bit 4:2:0 inter stream
   (libaom cpu_used=8, q=45, 4 frames, bench.py:_make_stream);
 - ``hbd10_128x96.ivf``: tests/test_device_e2e.CASES["hbd10"]
-  (128x96 10-bit, 3 frames).
+  (128x96 10-bit, 3 frames);
+- ``superres_lr_1080p_8bit.ivf``: 1080p 8-bit 4:2:0, 4 frames, libaom
+  cpu_used=4, q=45 with super-res (every frame coded 960 wide and
+  upscaled to 1920) and loop restoration (Wiener on every plane);
+- ``lr_1080p_8bit.ivf``: the same settings without super-res: loop
+  restoration at full width, with self-guided units in the key frame.
 
 The md5 of each stream is the JAX package's host tier
 (DAV1D_TPU_DEVICE=0) over every plane of every output picture, in the
 tests/test_device_e2e._decode_md5 convention.
 
-Run from the repository root:  python tools/torch_smoke_streams.py
+Run from the repository root (with names, only those streams are
+made and only their md5 entries replaced):
+
+    python tools/torch_smoke_streams.py [name.ivf ...]
 """
 
 from __future__ import annotations
@@ -38,6 +46,17 @@ STREAMS = {
     "hbd10_128x96.ivf": dict(
         n=3, w=128, h=96, bitdepth=10,
         enc=dict(usage="good", kf_max_dist=9999)),
+    "superres_lr_1080p_8bit.ivf": dict(
+        n=4, w=1920, h=1080, bitdepth=8,
+        enc=dict(usage="good", cpu_used=4, q=45, kf_max_dist=9999, lag=0,
+                 superres=(1, 16, 16, 63, 63),
+                 options={"enable-order-hint": 1,
+                          "enable-restoration": 1})),
+    "lr_1080p_8bit.ivf": dict(
+        n=4, w=1920, h=1080, bitdepth=8,
+        enc=dict(usage="good", cpu_used=4, q=45, kf_max_dist=9999, lag=0,
+                 options={"enable-order-hint": 1,
+                          "enable-restoration": 1})),
 }
 
 
@@ -62,8 +81,11 @@ def main() -> None:
     from aom_enc import AomEncoder, gradient_frames, write_ivf_packets
 
     OUT.mkdir(parents=True, exist_ok=True)
-    md5s = {}
-    for name, spec in STREAMS.items():
+    names = sys.argv[1:] or list(STREAMS)
+    md5_path = OUT / "md5.json"
+    md5s = json.loads(md5_path.read_text()) if md5_path.exists() else {}
+    for name in names:
+        spec = STREAMS[name]
         w, h, bd = spec["w"], spec["h"], spec["bitdepth"]
         enc = AomEncoder(width=w, height=h, bitdepth=bd, **spec["enc"])
         pkts = enc.encode(gradient_frames(spec["n"], w, h, bitdepth=bd))
@@ -74,7 +96,8 @@ def main() -> None:
         md5s[name] = {"frames": n, "md5": md5, "width": w, "height": h,
                       "bitdepth": bd, "bytes": path.stat().st_size}
         print(name, md5s[name], flush=True)
-    (OUT / "md5.json").write_text(json.dumps(md5s, indent=1) + "\n")
+    md5s = {k: md5s[k] for k in STREAMS if k in md5s}
+    md5_path.write_text(json.dumps(md5s, indent=1) + "\n")
 
 
 if __name__ == "__main__":
