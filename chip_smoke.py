@@ -40,7 +40,16 @@ Phases; any failure exits non-zero:
    tables at the 1080p planes with unit widths 128/192/256/384 and
    stripe heights 28/32/56/64 in all 16 edge combinations, on blocky
    planes and on the pixels {0, 1, 2^bd-2, 2^bd-1}, where the
-   self-guided products are largest), bit depths 8/10/12;
+   self-guided products are largest; film grain (fg) on every plane of
+   1080p 4:2:0 pictures with random grain parameters: luma, chroma with
+   uv_mult, chroma from luma, overlap on and off, the restricted range,
+   an odd 1919x1079 picture, junk beyond it in the allocation; the intra
+   kernels on 1080p-shaped canvases: prediction units (ipred) of every
+   size 4..64, mode, angle of tests/test_ops_ipred.py:50,58,69 with
+   every flag, and edge-availability combination on the luma canvas and
+   the stacked chroma pair, CFL units (ipred_cfl) on the stacked chroma
+   pair with the luma canvas, palette units (ipred_pal), on random and
+   extreme pixels), bit depths 8/10/12;
 4. decode the committed 1080p 8-bit inter stream (the main path of the
    earlier kernels), the committed 10-bit stream and the two committed
    1080p loop-restoration streams (super-res + Wiener on every frame;
@@ -58,7 +67,15 @@ Phases; any failure exits non-zero:
    restoration one upload of planes (the reconstructed ones) and no
    ``chain.upload_final``; the transform blocks of the itx kernel, the
    share of inter blocks the MC kernel predicted and the restoration
-   units are printed;
+   units are printed; the committed film-grain streams (1080p 8-bit,
+   352x288 10-bit) and the palette stream against their md5s, with one
+   fg launch per plane with grain on every picture; the main stream, the
+   10-bit stream and the palette stream again with
+   ``Decoder(..., device_intra=True)`` against the same md5s, frame by
+   frame one launch of each intra kernel per wavefront level holding
+   units of its kind, and none on a frame the device stage hands to the
+   host walk (their count is printed); ipred and ipred_cfl must launch on
+   the main stream, ipred_pal on the palette stream;
 5. time the 1080p decode (frames/s, best of 3 after the warm-up decode),
    then decode it once more with the stage spans and transfer counters
    on, capturing the MC, CDEF filter and itx kernels' real calls: each
@@ -78,7 +95,13 @@ Phases; any failure exits non-zero:
    the same inputs (bytes over 3.35 TB/s or 32-bit operations over 67
    Tops/s, whichever is larger), and its share, bound over launch
    time; time on the host what the MC tile list adds to the
-   ``pass2.mc.launch`` span on the decode's own job lists.
+   ``pass2.mc.launch`` span on the decode's own job lists; film grain's
+   spans and transfer bytes per picture, the ``pass2.intra.*`` spans of
+   the intra streams with device intra off and on, its levels, units per
+   kind and host-walk frames, each frame's level launches replayed back
+   to back (device time); the bound per frame of K9-K12 on their
+   decodes' calls; K9-K12 timed on those calls (the largest grained
+   plane; the level with the most units of each kind).
 
 The line before the last is the kernels' JSON report; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -104,6 +127,20 @@ HBD_STREAM = "hbd10_128x96.ivf"
 SR_STREAM = "superres_lr_1080p_8bit.ivf"
 LR_STREAM = "lr_1080p_8bit.ivf"
 LR_KERNELS = ("resize", "lr_wiener", "lr_sgr")
+# film grain on every frame (1080p 8-bit; 352x288 10-bit)
+FG_STREAM = "grain_1080p_8bit.ivf"
+FG_HBD_STREAM = "grain_hbd10_352x288.ivf"
+# two palette-coded 1080p key frames
+SCREEN_STREAM = "screen_1080p_8bit.ivf"
+INTRA_KERNELS = ("ipred", "ipred_cfl", "ipred_pal")
+INTRA_KIND = {"ipred": "pred", "ipred_cfl": "cfl", "ipred_pal": "pal"}
+# decoded with device_intra=True as well: the main stream's key frame
+# (prediction and CFL units), the 10-bit stream, the palette stream
+INTRA_STREAMS = (MAIN_STREAM, HBD_STREAM, SCREEN_STREAM)
+# the decode whose launches each of K9-K12 reports: (stream, device_intra)
+PATH_OF = {"fg": (FG_STREAM, False), "ipred": (MAIN_STREAM, True),
+           "ipred_cfl": (MAIN_STREAM, True),
+           "ipred_pal": (SCREEN_STREAM, True)}
 
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -125,7 +162,16 @@ KERNELS = {
                   "dav1d_tpu/ops/lr.py:22"),
     "lr_sgr": ("dav1d_tpu_torch/csrc/lr.cu",
                "dav1d_tpu/ops/lr.py:124"),
+    "fg": ("dav1d_tpu_torch/csrc/fg.cu", "dav1d_tpu/ops/fg.py:21"),
+    "ipred": ("dav1d_tpu_torch/csrc/ipred.cu",
+              "dav1d_tpu/recon/device_intra.py:230"),
+    "ipred_cfl": ("dav1d_tpu_torch/csrc/ipred.cu",
+                  "dav1d_tpu/recon/device_intra.py:320"),
+    "ipred_pal": ("dav1d_tpu_torch/csrc/ipred.cu",
+                  "dav1d_tpu/recon/device_intra.py:406"),
 }
+# kernels that the main stream's default decode does not launch
+OTHER_PATHS = LR_KERNELS + ("fg",) + INTRA_KERNELS
 
 # the card's peak rates for the bounds (H100 SXM data sheet, at 700 W):
 # device memory, and 32-bit scalar operations outside the tensor cores
@@ -517,6 +563,218 @@ def _lr_jobs(rng, W, h, per, kind, variant=0):
     return jobs.astype(np.int32), y + row_h + 4
 
 
+
+# ---- film grain and intra inputs (K9-K12) --------------------------------
+
+def _fg_data(rng, overlap, csfl, restricted):
+    """Random film-grain parameters in the bitstream's ranges (2..14
+    luma scaling points, up to 10 per chroma plane, AR lag 3)."""
+    from dav1d_tpu_torch.headers import FilmGrainData
+
+    def points(n):
+        xs = sorted(rng.choice(256, n, replace=False))
+        return [(int(x), int(rng.integers(0, 256))) for x in xs]
+
+    d = FilmGrainData()
+    d.seed = int(rng.integers(0, 1 << 16))
+    d.num_y_points = int(rng.integers(2, 15))
+    d.y_points = points(d.num_y_points)
+    d.chroma_scaling_from_luma = csfl
+    for uv in range(2):
+        n = 0 if csfl else int(rng.integers(1, 11))
+        d.num_uv_points[uv], d.uv_points[uv] = n, points(n)
+        d.uv_mult[uv] = int(rng.integers(-128, 128))
+        d.uv_luma_mult[uv] = int(rng.integers(-128, 128))
+        d.uv_offset[uv] = int(rng.integers(-256, 256))
+    d.scaling_shift = int(rng.integers(8, 12))
+    d.ar_coeff_lag = 3
+    d.ar_coeffs_y = [int(v) for v in rng.integers(-40, 40, 24)]
+    d.ar_coeffs_uv = [[int(v) for v in rng.integers(-40, 40, 25)]
+                      for _ in range(2)]
+    d.ar_coeff_shift = int(rng.integers(6, 10))
+    d.grain_scale_shift = int(rng.integers(0, 2))
+    d.overlap_flag, d.clip_to_restricted_range = overlap, restricted
+    return d
+
+
+# (label, width, height, chroma_scaling_from_luma, overlap, restricted)
+FG_VARIANTS = [("1080p uv_mult overlap", 1920, 1080, 0, 1, 0),
+               ("1080p from luma no overlap restricted", 1920, 1080, 1, 0,
+                1),
+               ("1919x1079 uv_mult overlap restricted", 1919, 1079, 0, 1,
+                1)]
+
+
+def _fg_cases(rng, device, bd, shapes=SHAPES):
+    """K9 cases: every plane with grain of pictures of FG_VARIANTS on
+    allocation-sized 1080p planes (junk beyond the picture)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from dav1d_tpu_torch.headers import PixelLayout
+    from dav1d_tpu_torch.ops import fg as ofg
+    from dav1d_tpu_torch.recon import filmgrain as rfg
+
+    out = []
+    for label, w, h, csfl, overlap, restricted in FG_VARIANTS:
+        d = _fg_data(rng, overlap, csfl, restricted)
+        pic = types.SimpleNamespace(
+            frame_hdr=types.SimpleNamespace(
+                film_grain=types.SimpleNamespace(data=d)),
+            seq_hdr=types.SimpleNamespace(mtrx=1), layout=PixelLayout.I420,
+            bitdepth=bd, width=w, height=h)
+        planes = [torch.from_numpy(_plane(rng, *shapes[k][:2], bd)).to(
+            device) for k in ("luma", "chroma", "chroma")]
+        _, tabs = rfg.grain_tables(pic)
+        prm = rfg.plane_params(pic)
+        offs = torch.from_numpy(ofg.row_offsets(
+            d.seed, overlap, -(-h // 32), -(-w // 32))).to(device)
+        for pl, (lut, sc) in tabs.items():
+            sx = sy = 1 if pl else 0
+            out.append((f"{('Y', 'U', 'V')[pl]} {label} bd{bd}",
+                        ofg.apply_plane, ofg.apply_plane_plain,
+                        (planes[pl], planes[0],
+                         torch.from_numpy(lut).to(device),
+                         torch.from_numpy(sc).to(device), offs,
+                         (w + sx) >> sx, (h + sy) >> sy, w, prm[pl])))
+    return out
+
+
+# the angles of tests/test_ops_ipred.py:50,58,69 and the angle key's flags
+# (bit 9 smooth, bit 10 edge filter)
+Z_ANGLES = {6: (3, 23, 45, 64, 87), 7: (93, 113, 135, 157, 177),
+            8: (183, 203, 225, 247, 267)}
+Z_FLAGS = (0, 512, 1024, 1536)
+
+
+def _unit_params(w, h):
+    """[(mode, angle key, Z2 max_w, Z2 max_h)] of every resolved mode
+    (levels.py numbering), angle and flag for a w x h unit."""
+    rows = [(m, 0, 0, 0) for m in (0, 1, 2, 3, 4, 5, 9, 10, 11, 12)]
+    for mode, angles in Z_ANGLES.items():
+        for a in angles:
+            for f in Z_FLAGS:
+                rows.append((mode, a | f, w, h) if mode == 7 else
+                            (mode, a | f, 0, 0))
+                if mode == 7:
+                    rows.append((mode, a | f, max(4, w // 2),
+                                 max(4, h // 2)))
+    if w <= 32 and h <= 32:
+        rows += [(13, i, 0, 0) for i in range(5)]
+    return rows
+
+
+def _level_units(rng, H, W, ph, sizes):
+    """Job rows (ops/ipred.py columns) of one level of units on an
+    (H, W) canvas of ph-row planes: random sizes, modes, angles and edge
+    availability (have_left / have_top, partial left / top extents,
+    bottom-left / top-right spans), in grid rows 4 columns apart, each
+    followed by a gap as tall as its tallest unit plus 4, so that no unit
+    reads a cell another writes, as in a schedule's level."""
+    import numpy as np
+
+    rows, y = [], 4
+    while True:
+        row, x = [], 4
+        while True:
+            w, h = sizes[rng.integers(0, len(sizes))]
+            if x + w > W - 4:
+                break
+            row.append((x, w, h))
+            x += w + 4 + 4 * int(rng.integers(0, 3))
+        hmax = max(h for _, _, h in row)
+        half_end = (y // ph + 1) * ph
+        if half_end > H:
+            break
+        if y + 2 * hmax + 4 > half_end:
+            y = half_end + 4
+            continue
+        for x, w, h in row:
+            prm = _unit_params(w, h)
+            mode, akey, kmw, kmh = prm[rng.integers(0, len(prm))]
+            hl, ht = int(rng.integers(0, 2)), int(rng.integers(0, 2))
+            pxl = int(rng.integers(1, h + 1)) if hl else 0
+            pxt = int(rng.integers(1, w + 1)) if ht else 0
+            pxbl = int(rng.integers(0, h + 1)) if pxl == h else 0
+            pxtr = int(rng.integers(0, w + 1)) if pxt == w else 0
+            rows.append([y, x, w, h, hl, ht, pxl, pxbl, pxt, pxtr, akey, kmw,
+                         kmh, int(mode == 7 and rng.integers(0, 2)), mode,
+                         0])
+        y += 2 * hmax + 4
+    return np.asarray(rows, np.int32).reshape(-1, 16)
+
+
+IP_SIZES = [(4, 4), (8, 4), (4, 8), (8, 8), (16, 8), (8, 16), (16, 16),
+            (32, 8), (4, 16), (16, 4), (32, 32), (64, 16), (16, 64),
+            (32, 64), (64, 32), (64, 64)]
+IP_CHROMA_SIZES = [s for s in IP_SIZES if max(s) <= 32]
+
+
+def _ipred_cases(rng, device, bd, shapes=SHAPES):
+    """K10-K12 cases on 1080p-shaped canvases: prediction units on the
+    luma canvas and on the stacked chroma pair (every size 4..64, mode,
+    angle, edge combination), CFL units on the stacked chroma pair with
+    the luma canvas, palette units on the luma canvas; random and
+    extreme pixels.  Each call works on a copy of the canvas (the kernels
+    write in place)."""
+    import numpy as np
+    import torch
+
+    from dav1d_tpu_torch.ops import ipred as oip
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    (YH, YW), (CH, CW) = shapes["luma"][:2], shapes["chroma"][:2]
+    r = 1 << bd
+    pred, cfl, pal = [], [], []
+    for extremes in (False, True):
+        lbl = " extremes" if extremes else ""
+        make = _extremes if extremes else (
+            lambda g, h_, w_, b: g.integers(0, 1 << b, (h_, w_)).astype(
+                np.int32))
+        luma = dev(make(rng, YH, YW, bd))
+        chroma = dev(make(rng, 2 * CH, CW, bd))
+        rl = dev(rng.integers(-r, r, (YH, YW)).astype(np.int32))
+        rc = dev(rng.integers(-r, r, (2 * CH, CW)).astype(np.int32))
+        for label, canvas, resid, ph, sizes in (
+                ("luma", luma, rl, YH, IP_SIZES),
+                ("stacked chroma", chroma, rc, CH, IP_CHROMA_SIZES)):
+            jobs = _level_units(rng, canvas.shape[0], canvas.shape[1], ph,
+                                sizes)
+            pred.append((f"{label} {len(jobs)} units{lbl} bd{bd}",
+                         lambda c, *a: oip.pred_level(c.clone(), *a),
+                         lambda c, *a: oip.pred_level_plain(c.clone(), *a),
+                         (canvas, resid, dev(jobs), ph, bd)))
+        jobs = _level_units(rng, 2 * CH, CW, CH, IP_CHROMA_SIZES)
+        for j in jobs:
+            w, h = int(j[2]), int(j[3])
+            j[14] = rng.choice([0, 3, 4, 5])  # the DC variants
+            j[10] = rng.integers(0, YH - 2 * h + 1)  # luma origin
+            j[11] = rng.integers(0, YW - 2 * w + 1)
+            j[12] = rng.integers(-16, 17)  # alpha
+            j[13], j[15] = rng.integers(0, w // 4), rng.integers(0, h // 4)
+        cfl.append((f"stacked chroma {len(jobs)} units{lbl} bd{bd}",
+                    lambda c, *a: oip.cfl_level(c.clone(), *a),
+                    lambda c, *a: oip.cfl_level_plain(c.clone(), *a),
+                    (chroma, luma, rc, dev(jobs), CH, 1, 1, bd)))
+        jobs = _level_units(rng, YH, YW, YH, [(8, 8), (16, 16), (32, 32),
+                                              (64, 64), (16, 8), (32, 64)])
+        maps, off = [], 0
+        for j in jobs:
+            n = int(j[2] * j[3])
+            j[4], j[8:16] = off, rng.integers(0, r, 8)
+            maps.append(rng.integers(0, 8, n).astype(np.uint8))
+            off += n
+        pidx = dev(np.concatenate(maps))
+        pal.append((f"luma {len(jobs)} units{lbl} bd{bd}",
+                    lambda c, *a: oip.pal_level(c.clone(), *a),
+                    lambda c, *a: oip.pal_level_plain(c.clone(), *a),
+                    (luma, rl, dev(jobs), pidx, bd)))
+    return {"ipred": pred, "ipred_cfl": cfl, "ipred_pal": pal}
+
 def make_cases(device, shapes=SHAPES, seed=0):
     """Kernel inputs at the main path's shapes for bit depths 8/10/12:
     {kernel: [(label, kernel_fn, plain_fn, args), ...]}."""
@@ -632,6 +890,9 @@ def make_cases(device, shapes=SHAPES, seed=0):
                         f"{kind} {len(jobs)} units variant {variant}{label} "
                         f"bd{bd}", olr.sgr, olr.sgr_plain,
                         (post, pre, dev(jobs), bd)))
+        cases["fg"] += _fg_cases(rng, device, bd, shapes)
+        for k, items in _ipred_cases(rng, device, bd, shapes).items():
+            cases[k] += items
     return cases
 
 
@@ -677,12 +938,13 @@ def read_ivf(data):
         pos += 12 + size
 
 
-def decode(data, device, hashing=True):
+def decode(data, device, hashing=True, device_intra=False):
     """Decode an IVF stream with the port's public API; returns
     (frames, md5 over every plane of every picture, inter frames)."""
     from dav1d_tpu_torch.decoder import Decoder, Settings
 
-    dec = Decoder(Settings(two_pass=True, max_frame_delay=4), device=device)
+    dec = Decoder(Settings(two_pass=True, max_frame_delay=4), device=device,
+                  device_intra=device_intra)
     h = hashlib.md5()
     n = n_inter = 0
     for tu in read_ivf(data):
@@ -697,13 +959,14 @@ def decode(data, device, hashing=True):
     return n, h.hexdigest(), n_inter
 
 
-def decode_checked(name, device):
+def decode_checked(name, device, device_intra=False):
     """Decode a committed stream, check its md5; returns (frames, inter
     frames)."""
     want = json.loads((DATA / "md5.json").read_text())[name]
-    n, md5, n_inter = decode((DATA / name).read_bytes(), device)
-    print(f"  {name}: {n} frames ({n_inter} inter) md5 {md5} (want "
-          f"{want['md5']})", flush=True)
+    n, md5, n_inter = decode((DATA / name).read_bytes(), device,
+                             device_intra=device_intra)
+    print(f"  {name}{' device_intra' if device_intra else ''}: {n} frames "
+          f"({n_inter} inter) md5 {md5} (want {want['md5']})", flush=True)
     _require((n, md5) == (want["frames"], want["md5"]),
              f"{name}: decoded {n} frames md5 {md5}, want "
              f"{want['frames']} frames md5 {want['md5']}")
@@ -988,7 +1251,44 @@ def work(name, args):
         return 4 * (h * src_w + plane.shape[0] * alloc_w), 19 * h * out_w
     if name in ("lr_wiener", "lr_sgr"):
         return _lr_work(name, args[2])
+    if name == "fg":
+        lut, sc, offs, w, h, p = args[2:6] + args[6:7] + args[8:9]
+        pix = w * h
+        # reads: the plane, for chroma the luma rows under it (every
+        # (1 << ss_y)-th row, 2w wide with ss_x), the tables; writes: the
+        # plane.  Per pixel: the grain offset and LUT address (4), the
+        # apply (multiply, round, shift, add, clip: 6); chroma adds the
+        # luma average (3) and, without chroma-from-luma, the combine
+        # and its clip (6)
+        luma = h * (w << p.ss_x) if p.pl else 0
+        nbytes = 4 * (2 * pix + luma + lut.numel() + sc.numel()
+                      + offs.numel())
+        ops = pix * (10 + (3 + 6 * (not p.csfl) if p.pl else 0))
+        return nbytes, ops
+    if name in INTRA_KERNELS:
+        return _ipred_work(name, args)
     raise KeyError(name)
+
+
+def _ipred_work(name, args):
+    """(bytes, operations) of one level launch, counted from below: per
+    unit its job row, its edge reads (2w + 2h + 1 canvas pixels; none for
+    palette), its residual window and output window (for CFL the luma
+    pixels under it, for palette its index map); per pixel the
+    prediction's one blend (2), the residual add (1) and the clip (2)."""
+    jobs = args[3 if name == "ipred_cfl" else 2].long()
+    w, h = jobs[:, 2], jobs[:, 3]
+    pix = w * h
+    per = 8 * pix + 64
+    if name == "ipred":
+        per = per + 4 * (2 * w + 2 * h + 1)
+    elif name == "ipred_cfl":
+        ss_hor, ss_ver = args[5], args[6]
+        per = per + 4 * (2 * w + 2 * h + 1) + 4 * pix * ((1 + ss_hor)
+                                                         * (1 + ss_ver))
+    else:
+        per = per + pix
+    return int(per.sum()), int(5 * pix.sum())
 
 
 def _lr_work(name, jobs):
@@ -1127,6 +1427,108 @@ class ChainLog:
         return False
 
 
+class FrameLog:
+    """Frame by frame, what film grain and the device intra stage did
+    during a decode: wraps recon/filmgrain.apply_grain (the planes that
+    get grain, the fg launches and transfer bytes it added) and
+    recon/device_intra.intra_frame_device (whether the frame ran on the
+    device, the ipred launches and the schedule's counts it added, and,
+    when devrt.CAPTURE is on, the slice of captured launches it made)."""
+
+    def __enter__(self):
+        from dav1d_tpu_torch import devrt
+        from dav1d_tpu_torch.recon import device_intra, filmgrain
+
+        self.grain, self.intra = [], []
+        self._saved = (filmgrain.apply_grain,
+                       device_intra.intra_frame_device)
+        grain, intra = self._saved
+
+        def logged_grain(pic, device, dev_planes=None):
+            planes = len(filmgrain.grain_tables(pic)[1])
+            l0, x0 = devrt.LAUNCHES["fg"], dict(devrt.XFER or {})
+            grain(pic, device, dev_planes)
+            self.grain.append({
+                "planes": planes, "fg": devrt.LAUNCHES["fg"] - l0,
+                "resident": dev_planes is not None,
+                "bytes": {k: v - x0.get(k, 0)
+                          for k, v in (devrt.XFER or {}).items()}})
+
+        def logged_intra(f, st):
+            l0 = collections.Counter(devrt.LAUNCHES)
+            c0 = collections.Counter(devrt.COUNTS)
+            k0 = len(devrt.CAPTURE or ())
+            ok = intra(f, st)
+            self.intra.append({
+                "device": ok, "captured": (k0, len(devrt.CAPTURE or ())),
+                "launches": {k: devrt.LAUNCHES[k] - l0[k]
+                             for k in INTRA_KERNELS},
+                "counts": dict(devrt.COUNTS - c0)})
+            return ok
+
+        filmgrain.apply_grain = logged_grain
+        device_intra.intra_frame_device = logged_intra
+        return self
+
+    def __exit__(self, *exc):
+        from dav1d_tpu_torch.recon import device_intra, filmgrain
+
+        filmgrain.apply_grain, device_intra.intra_frame_device = self._saved
+        return False
+
+
+def replay_ms(captured):
+    """Device ms of the captured launches (devrt.CAPTURE entries) run
+    again back to back: queued behind a spin kernel long enough for the
+    host to queue them all (~50 us of spin a launch), CUDA events around
+    them.  Returns (ms, host ms of the queueing)."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(max(10_000_000, 100_000 * len(captured)))
+    e0.record()
+    h0 = time.perf_counter()
+    rcs = [cfn(*cargs) for _, cfn, cargs, _ in captured]
+    host_s = time.perf_counter() - h0
+    e1.record()
+    torch.cuda.synchronize()
+    _require(not any(rcs), f"replayed launches failed: {rcs}")
+    return e0.elapsed_time(e1), host_s * 1e3
+
+
+def check_grain_frames(name, frames, n):
+    """One fg launch per plane with grain, on every picture."""
+    _require(len(frames) == n, f"{name}: grain ran on {len(frames)} of "
+             f"{n} pictures")
+    for i, fr in enumerate(frames):
+        _require(fr["planes"] > 0 and fr["fg"] == fr["planes"],
+                 f"{name} picture {i}: {fr['fg']} fg launches for "
+                 f"{fr['planes']} planes with grain")
+
+
+def check_intra_frames(name, frames):
+    """Per frame of a device_intra decode: on a frame the device stage
+    took, one launch per level holding units of a kind, for each kind
+    (so none on a frame without intra units); on a frame it handed to
+    the host walk, none.  Returns (launches per kernel, host frames)."""
+    total = collections.Counter()
+    host = 0
+    for i, fr in enumerate(frames):
+        k, c = fr["launches"], fr["counts"]
+        if not fr["device"]:
+            host += 1
+            _require(not any(k.values()), f"{name} frame {i}: host-walk "
+                     f"frame with ipred launches {k}")
+            continue
+        for tag, kind in INTRA_KIND.items():
+            _require(k[tag] == c.get(f"intra_{kind}_levels", 0),
+                     f"{name} frame {i}: {k[tag]} {tag} launches for "
+                     f"{c.get(f'intra_{kind}_levels', 0)} levels with "
+                     f"{kind} units")
+        total.update(k)
+    return dict(total), host
+
 def check_lr_frames(name, frames, n):
     """The restoration streams' frame-by-frame launch checks (phase 4)."""
     _require(len(frames) == n, f"{name}: {len(frames)} chain runs for "
@@ -1228,7 +1630,7 @@ def main() -> int:
           f"{blocks.get('inter_blocks', 0)} inter blocks; itx kernel "
           f"transformed {blocks.get('itx_blocks', 0)} blocks", flush=True)
     for k, n in launches.items():
-        if k in LR_KERNELS:  # not on this stream: counted below
+        if k in OTHER_PATHS:  # not on this decode: counted below
             continue
         want = ninter if k == "mc" else nframes
         _require(n >= want, f"{k}: {n} launches, want >= {want} "
@@ -1274,6 +1676,42 @@ def main() -> int:
     _require(launches["lr_sgr"] >= 1, f"{LR_STREAM}: no lr_sgr launch")
     _require(launches["resize"] >= lr_frames[SR_STREAM],
              f"{SR_STREAM}: {launches['resize']} resize launches")
+    # film grain: one fg launch per plane with grain on every picture
+    for name in (FG_STREAM, FG_HBD_STREAM):
+        devrt.LAUNCHES.clear()
+        devrt.COUNTS.clear()
+        with FrameLog() as log:
+            n_fg, _ = decode_checked(name, device)
+        check_grain_frames(name, log.grain, n_fg)
+        print(f"  {name}: fg launches per picture "
+              f"{[fr['fg'] for fr in log.grain]} (planes with grain "
+              f"{[fr['planes'] for fr in log.grain]}; resident planes "
+              f"{[fr['resident'] for fr in log.grain]})", flush=True)
+        if (name, False) == PATH_OF["fg"]:
+            launches["fg"] = devrt.LAUNCHES["fg"]
+    decode_checked(SCREEN_STREAM, device)
+    # device intra: the same md5s; per frame one launch per level and kind
+    # present, none on host-walk or all-inter frames
+    intra_report = {}
+    for name in INTRA_STREAMS:
+        devrt.LAUNCHES.clear()
+        devrt.COUNTS.clear()
+        with FrameLog() as log:
+            decode_checked(name, device, device_intra=True)
+        got, host = check_intra_frames(name, log.intra)
+        counts = {k: v for k, v in devrt.COUNTS.items()
+                  if k.startswith("intra_")}
+        intra_report[name] = {"launches": got, "host_walk_frames": host,
+                              "counts": counts,
+                              "frames": len(log.intra)}
+        print(f"  {name} device_intra: launches {got}, host-walk frames "
+              f"{host}, counts {counts}", flush=True)
+        for k in INTRA_KERNELS:
+            if PATH_OF[k] == (name, True):
+                launches[k] = got.get(k, 0)
+    for k in ("fg",) + INTRA_KERNELS:
+        _require(launches.get(k, 0) >= 1, f"{k}: no launch on "
+                 f"{PATH_OF[k][0]}")
 
     print("== 5. timing", flush=True)
     runs = []
@@ -1304,7 +1742,7 @@ def main() -> int:
     # the least device time per frame of each kernel on the decode's own
     # calls (compare with tools/torch_decode_profile.py's device times)
     frame_bound = {k: sum(bound(k, a)[0] for name, a in calls if name == k)
-                   / n for k in KERNELS if k not in LR_KERNELS}
+                   / n for k in KERNELS if k not in OTHER_PATHS}
     print(f"  bound per frame on the decode's calls (ms): "
           f"{ {k: round(v, 5) for k, v in frame_bound.items()} }",
           flush=True)
@@ -1410,7 +1848,105 @@ def main() -> int:
         _require(errs[k] == 0, f"{k} disagrees with its plain version on "
                  "the decodes' calls")
 
+    # film grain: spans and transfer bytes per picture, the decode's calls
+    from dav1d_tpu_torch.ops import fg as ofg
+    from dav1d_tpu_torch.ops import ipred as oip
+
+    devrt.SPANS, devrt.XFER, devrt.SINK = {}, {"up": 0, "down": 0}, []
+    with FrameLog() as log:
+        gn, _, _ = decode((DATA / FG_STREAM).read_bytes(), device,
+                          hashing=False)
+    gspans, gsink = devrt.SPANS, devrt.SINK
+    devrt.SPANS = devrt.XFER = devrt.SINK = None
+    fg_calls = [args for tag, _, args, _ in gsink if tag == "fg"]
+    grain_report = {
+        "span_ms_per_picture": {k: v * 1e3 / gn for k, v in
+                                sorted(gspans.items())
+                                if k.startswith("grain")},
+        "bytes_per_picture": {
+            k: sum(fr["bytes"].get(k, 0) for fr in log.grain) / gn
+            for k in ("up", "down")},
+        "planes_resident": sum(fr["resident"] for fr in log.grain)}
+    print(f"  {FG_STREAM}: grain per picture: spans (ms) "
+          f"{ {k: round(v, 3) for k, v in grain_report['span_ms_per_picture'].items()} }, "
+          f"bytes {grain_report['bytes_per_picture']}, pictures read from "
+          f"resident planes {grain_report['planes_resident']} of {gn}",
+          flush=True)
+    # device intra: the pass2.intra.* spans with it off and on, the
+    # device timeline of each frame's levels (events around the stage),
+    # and every level launch of the decode again, back to back behind a
+    # spin kernel (the levels' device time without the host between them)
+    intra_calls = {}
+    for name in INTRA_STREAMS:
+        sdata = (DATA / name).read_bytes()
+        rep = intra_report[name]
+        rep["spans_ms_per_frame"] = {}
+        for di in (False, True):
+            devrt.SPANS = {}
+            if di:
+                devrt.SINK, devrt.CAPTURE = [], []
+            with FrameLog() as log:
+                sn, _, _ = decode(sdata, device, hashing=False,
+                                  device_intra=di)
+            sspans, ssink, scap = devrt.SPANS, devrt.SINK, devrt.CAPTURE
+            devrt.SPANS = devrt.SINK = devrt.CAPTURE = None
+            rep["spans_ms_per_frame"]["on" if di else "off"] = {
+                k: v * 1e3 / sn for k, v in sorted(sspans.items())
+                if k.startswith("pass2.intra")}
+            if not di:
+                continue
+            intra_calls[name] = [(tag, args) for tag, _, args, _ in ssink
+                                 if tag in INTRA_KERNELS]
+            # the levels of each device frame, again, back to back
+            rep["levels_back_to_back"] = []
+            for fr in log.intra:
+                a, b = fr["captured"]
+                cap = [c for c in scap[a:b] if c[0] in INTRA_KERNELS]
+                if cap:
+                    ms, host_ms = replay_ms(cap)
+                    rep["levels_back_to_back"].append(
+                        {"launches": len(cap), "ms": ms,
+                         "host_queue_ms": host_ms})
+            del scap
+        print(f"  {name}: pass2.intra spans per frame (ms) off "
+              f"{ {k: round(v, 3) for k, v in rep['spans_ms_per_frame']['off'].items()} }"
+              f", on "
+              f"{ {k: round(v, 3) for k, v in rep['spans_ms_per_frame']['on'].items()} }"
+              f"; levels {rep['counts'].get('intra_levels', 0)}, units "
+              f"{ {k: rep['counts'].get(f'intra_{k}_units', 0) for k in ('pred', 'cfl', 'pal')} }"
+              f", host-walk frames {rep['host_walk_frames']}; each "
+              f"frame's level launches again back to back (device ms, "
+              f"launches, host ms to queue them): "
+              f"{[(round(r['ms'], 3), r['launches'], round(r['host_queue_ms'], 1)) for r in rep['levels_back_to_back']]}",
+              flush=True)
+
+    # the least device time per frame of K9-K12 on their decodes' calls
+    path_bound = {"fg": sum(bound("fg", a)[0] for a in fg_calls) / gn}
+    for k in INTRA_KERNELS:
+        stream = PATH_OF[k][0]
+        path_bound[k] = sum(bound(k, a)[0] for t, a in intra_calls[stream]
+                            if t == k) / intra_report[stream]["frames"]
+    print(f"  bound per frame on their decodes' calls (ms): "
+          f"{ {k: round(v, 6) for k, v in path_bound.items()} }",
+          flush=True)
+
     timed = {name: items[0] for name, items in cases.items()}
+    big = max(fg_calls, key=lambda a: a[5] * a[6])
+    timed["fg"] = (f"{FG_STREAM} plane {big[8].pl} ({big[5]}x{big[6]}) of "
+                   "the decode", ofg.apply_plane, ofg.apply_plane_plain, big)
+    plains = {"ipred": (oip.pred_level, oip.pred_level_plain),
+              "ipred_cfl": (oip.cfl_level, oip.cfl_level_plain),
+              "ipred_pal": (oip.pal_level, oip.pal_level_plain)}
+    for k in INTRA_KERNELS:
+        stream = PATH_OF[k][0]
+        calls = [a for t, a in intra_calls[stream] if t == k]
+        _require(calls, f"the traced {stream} decode made no {k} call")
+        j = 3 if k == "ipred_cfl" else 2
+        big = max(calls, key=lambda a: a[j].shape[0])
+        # in place on the decode's own canvas (timing only: phase 3 and
+        # the md5s hold the results)
+        timed[k] = (f"{stream} level of {big[j].shape[0]} units (largest "
+                    f"of {len(calls)})", *plains[k], big)
     name, big = max(lr_calls["resize"], key=lambda c: c[1][0].numel())
     timed["resize"] = (f"{name} luma call {tuple(big[0].shape)}",
                        oresize.resize_plane, oresize.resize_plane_plain, big)
@@ -1476,6 +2012,11 @@ def main() -> int:
                       "mc_tile_list_host_ms_per_frame": tl_ms,
                       "itx_calls": itx_stats, "itx_occupancy": occ,
                       "restoration_streams": lr_report,
+                      "grain": grain_report,
+                      "bound_ms_per_frame_k9_k12": path_bound,
+                      "device_intra": {
+                          k: {kk: vv for kk, vv in v.items()}
+                          for k, v in intra_report.items()},
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

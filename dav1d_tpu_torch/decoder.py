@@ -12,7 +12,13 @@ PyTorch versions on the CPU), and each reference slot keeps the frame's
 final planes resident on it (``_RefSlot.dev_planes``) for the MC of
 later frames.  The device defaults to ``"cuda"``; without CUDA the
 constructor raises instead of running on the CPU.  The CPU tests pass
-``device="cpu"``.
+``device="cpu"``.  Film grain runs there at output (recon/filmgrain.py).
+
+``device_intra=True`` moves phase B of pass 2, the ordered intra walk,
+to the device as well (recon/device_intra.py: wavefront levels of
+prediction units, one kernel launch per level and kind).  It is off by
+default, as in the reference (dav1d_tpu/dispatch.py: ``ipred`` is off
+unless DAV1D_TPU_DEVICE_IPRED=1).
 """
 
 from __future__ import annotations
@@ -97,6 +103,9 @@ class Picture:
     mastering_display: object = None
     itut_t35: list = dataclasses.field(default_factory=list)
     props: object = None  # DataProps of the originating packet
+    # the frame's final planes resident on the decoder's device (int32,
+    # allocation-sized), which film grain reads; dropped at output
+    dev_planes: object = dataclasses.field(default=None, repr=False)
 
     def plane_buffer(self, pl: int) -> np.ndarray:
         """Output-width view of a plane: one contiguous cast (uint8 at
@@ -169,8 +178,10 @@ class Decoder:
     """Single-threaded decode pipeline (frame threading and the device
     batch pipeline layer on top of this state machine)."""
 
-    def __init__(self, settings: Settings | None = None, device="cuda"):
+    def __init__(self, settings: Settings | None = None, device="cuda",
+                 device_intra: bool = False):
         self.device = resolve_device(device)
+        self.device_intra = bool(device_intra)
         self.settings = settings or Settings()
         self.strict_std_compliance = self.settings.strict_std_compliance
         self.seq_hdr = None
@@ -437,6 +448,7 @@ class Decoder:
         f.inloop_filters = self.settings.inloop_filters
         f.n_threads = self.settings.n_threads
         f.device = self.device
+        f.device_intra = self.device_intra
         f._props = self._cur_props
         two_pass = self.settings.two_pass
         if not two_pass:
@@ -577,7 +589,8 @@ class Decoder:
         pic = Picture(
             planes=planes, width=w, height=h,
             layout=layout, bitdepth=slot.seq_hdr.bitdepth,
-            seq_hdr=slot.seq_hdr, frame_hdr=slot.frame_hdr)
+            seq_hdr=slot.seq_hdr, frame_hdr=slot.frame_hdr,
+            dev_planes=slot.dev_planes)
         self.out_queue.append(pic)
         if slot.frame_hdr.frame_type == FrameType.KEY:
             # key-frame ref propagation (reference src/obu.c:1620-1639)
@@ -598,14 +611,22 @@ class Decoder:
             planes += [p[:ch, :cw] for p in f.sr_planes[1:]]
         return Picture(planes=planes, width=w, height=h, layout=f.layout,
                        bitdepth=f.bitdepth, seq_hdr=f.seq_hdr,
-                       frame_hdr=hdr, props=getattr(f, "_props", None))
+                       frame_hdr=hdr, props=getattr(f, "_props", None),
+                       dev_planes=getattr(f, "_dev_planes", None))
 
     # -- output --------------------------------------------------------------
 
     def _maybe_apply_grain(self, pic: Picture) -> Picture:
         """Output-stage film grain (reference output_image, src/lib.c:311;
-        reference pictures stay grain-free)."""
+        reference pictures stay grain-free), on the decoder's device
+        (recon/filmgrain.apply_grain: one film-grain kernel launch per
+        plane with grain).  The kernel reads the frame's final planes
+        where they stay resident (``Picture.dev_planes``: frames that
+        refresh a reference slot, and shown existing frames), else the
+        picture's planes, uploaded; the grained planes come down into
+        pooled copies of the picture's planes, which replace them."""
         hdr = pic.frame_hdr
+        dev_planes, pic.dev_planes = pic.dev_planes, None
         if not self.settings.apply_grain or hdr is None:
             return pic
         fg = hdr.film_grain
@@ -621,7 +642,8 @@ class Decoder:
             c[:] = p
             copies.append(c)
         pic.planes = copies
-        apply_grain(pic)
+        with devrt.span("grain"):
+            apply_grain(pic, self.device, dev_planes)
         return pic
 
     def get_picture(self) -> Optional[Picture]:

@@ -22,7 +22,12 @@ kernel launch through :func:`launch`, every upload through
   whose predictions the batched MC stage computed on the device),
   ``itx_blocks`` (the transform blocks whose residuals the itx stage
   computed), ``lr_wiener_units`` and ``lr_sgr_units`` (the stripe units
-  the loop-restoration stage filtered).
+  the loop-restoration stage filtered); with device intra
+  (recon/device_intra.py), ``intra_levels`` (the wavefront levels of
+  its schedules), ``intra_{pred,cfl,pal}_units`` (the units of each
+  kind), ``intra_{pred,cfl,pal}_levels`` (the levels holding units of
+  each kind: one launch each) and ``intra_host_frames`` (the frames it
+  handed to the host walk).
 """
 
 from __future__ import annotations

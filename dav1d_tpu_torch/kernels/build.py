@@ -106,6 +106,7 @@ def build_log() -> str:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 _SIGNATURES = {
     # src, dst, cells, H, W, vertical, bitdepth, luma, stream
@@ -127,6 +128,17 @@ _SIGNATURES = {
     "dtpu_resize": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P],
     # post, pre, out, H, W, jobs, n_jobs, sgr, bitdepth, stream
     "dtpu_lr": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
+    # src, src_stride, luma, luma_stride, lw, out, w, h, lut, scaling,
+    # offs, n_blocks, prm (host ints), stream
+    "dtpu_fg": [_P, _L, _P, _L, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P],
+    # canvas, resid, H, W, ph, jobs, n_jobs, bitdepth, stream
+    "dtpu_ipred": [_P, _P, _I, _I, _I, _P, _I, _I, _P],
+    # canvas, luma, resid, H, W, ph, YH, YW, jobs, n_jobs, ss_hor, ss_ver,
+    # bitdepth, stream
+    "dtpu_ipred_cfl": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I,
+                       _P],
+    # canvas, resid, H, W, jobs, n_jobs, pidx, bitdepth, stream
+    "dtpu_ipred_pal": [_P, _P, _I, _I, _P, _I, _P, _I, _P],
 }
 
 

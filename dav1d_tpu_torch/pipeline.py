@@ -18,7 +18,10 @@ and executes the pixel work:
   2. the native phase-A replay predicts the other inter blocks on the
      host and adds their residuals;
   3. intra/intrabc/interintra blocks replay in decode order (their
-     prediction reads reconstructed neighbours).
+     prediction reads reconstructed neighbours): on the host (the native
+     walk), or, with ``f.device_intra`` (``Decoder(device_intra=True)``),
+     level by level on ``f.device`` (recon/device_intra.py), except on
+     the frames that schedule does not cover.
 """
 
 from __future__ import annotations
@@ -56,16 +59,19 @@ def _replay_one(t, rec) -> None:
 class _NativeResiduals:
     """The frame's residuals for the arena-driven (record-free) pass 2:
     one flat buffer holding every transform block's h x w residuals
-    (ops/itx.itx_frame, computed on ``f.device``), its pending download,
-    and the per-meta-row pointers into it that the native replay reads
-    (0 for rows without residuals)."""
+    (ops/itx.itx_frame, computed on ``f.device``; ``dev`` keeps the device
+    copy, which the device intra stage scatters into its residual
+    canvases), its pending download, and the per-meta-row pointers into
+    it that the native replay reads (0 for rows without residuals)."""
 
-    __slots__ = ("ptrs", "elsz", "pos", "jobs", "host", "event", "flat")
+    __slots__ = ("ptrs", "elsz", "pos", "jobs", "host", "event", "flat",
+                 "dev")
 
     def __init__(self, n_meta, elsz):
         self.ptrs = np.zeros(n_meta, dtype=np.uint64)
         self.elsz = elsz
         self.pos = self.jobs = self.host = self.event = self.flat = None
+        self.dev = None
 
     def collect(self):
         """Wait for the download and point every block's meta row at its
@@ -118,6 +124,7 @@ def _launch_residuals_native(f):
                      both[:jobs.size].view(jobs.shape),
                      both[jobs.size:].view(groups.shape), n_out, f.bitdepth)
     st.host, st.event = devrt.fetch_async(out)
+    st.dev = out
     st.jobs = jobs
     st.pos = np.full(meta.shape[0], -1, dtype=np.int64)
     st.pos[valid[order]] = np.arange(len(order))
@@ -311,8 +318,11 @@ def run_pass2(f, st) -> None:
     the device MC launch, the copy of its predictions into the frame
     with their residual adds, the native phase-A replay of the other
     inter blocks with theirs, then the native phase-B ordered intra
-    walk; Python replays only the blocks C reports back (scaled
-    references, intrabc, interintra, consistency stops)."""
+    walk (or, with ``f.device_intra``, the device intra stage of
+    recon/device_intra.py, which hands the frames it does not cover to
+    that walk); Python replays only the blocks C reports back (scaled
+    references, intrabc, interintra, consistency stops).  Nothing here
+    catches a device failure: it raises out of the decode."""
     from .native import lib as _nlib
 
     glue = f._nat
@@ -361,15 +371,24 @@ def run_pass2(f, st) -> None:
     for bi in skipped[:ns]:
         _replay_one(t, glue.build_record(int(bi), st.resid_of_meta))
 
+    # phase B on the device: the wavefront levels of recon/device_intra
+    if f.device_intra:
+        from .recon.device_intra import intra_frame_device
+        if intra_frame_device(f, st):
+            return
+        devrt.COUNTS["intra_host_frames"] += 1
+
     # phase B: ordered intra walk, stopping at blocks needing Python.
     # Per-tile ranges are a valid order: intra prediction never crosses
     # tile boundaries.
-    for s, e in ranges:
-        cursor = s
-        while cursor < e:
-            k = int(_nlib.dtpu_intra_replay(ctypes.byref(rc), cursor, e))
-            cursor += k
-            if cursor < e:
-                _replay_one(t, glue.build_record(cursor, st.resid_of_meta))
-                cursor += 1
+    with devrt.span("pass2.intra.host"):
+        for s, e in ranges:
+            cursor = s
+            while cursor < e:
+                k = int(_nlib.dtpu_intra_replay(ctypes.byref(rc), cursor, e))
+                cursor += k
+                if cursor < e:
+                    _replay_one(t, glue.build_record(cursor,
+                                                     st.resid_of_meta))
+                    cursor += 1
 

@@ -22,13 +22,23 @@ versions of the kernels) against the JAX package, bit-exact.
   selection takes: kitchen, grain and hbd10.  superres_lr has none: with
   super-res on every frame, each reference's upscaled width differs from
   the coded width, so every reference counts as scaled;
-* every committed smoke stream decodes to its committed md5, with its
+* every committed smoke stream (also two film-grain streams and a
+  palette-coded one) decodes to its committed md5, with its
   transform blocks through the itx stage, its inter blocks predicted by
   the MC stage and its loop-restoration units filtered, counted (the
   10-bit stream: 164 transform blocks, 11 of its 12 inter blocks; the
   1080p super-res stream: 642 Wiener units, every frame upscaled, no MC
   block, since every reference is scaled; the 1080p restoration stream:
   327 Wiener and 16 self-guided units);
+* with device_intra=True (phase B on the device schedule, its plain
+  level steps on the CPU), every tests/test_device_intra.CASES stream,
+  that file's mixed-stream recipe and 4:2:2 and 12-bit key frames equal
+  the JAX host tier, and the committed 10-bit (a CFL unit) and palette
+  streams their md5s; a 10-bit film-grain stream equals the JAX host
+  tier on the port's plain grain path; a failing launch in the device
+  intra stage or in film grain raises out of the decode, and
+  device_intra on CUDA without CUDA raises; the schedule leaves frames
+  with intrabc or interintra blocks to the host walk, which counts them;
 * in a subprocess, the port imports and decodes the committed 10-bit
   stream to its md5 and imports no jax: once with jax unimportable, and
   once with jax importable and the JAX package's dispatch reporting an
@@ -152,7 +162,7 @@ def _meta_rows_seen():
         pipeline._launch_residuals_native = launch
 
 
-def _port_md5(data):
+def _port_md5(data, device_intra=False):
     """The port's (frames, md5) on the CPU; its devrt.COUNTS hold the
     decode's block counts afterwards, and every transform block with
     coefficients went through the itx stage."""
@@ -169,7 +179,8 @@ def _port_md5(data):
         with _device_env(), _refusing_dispatch() as asked, \
                 _meta_rows_seen() as seen:
             got = _md5(Decoder(Settings(two_pass=True, max_frame_delay=4),
-                               device="cpu"), data)
+                               device="cpu", device_intra=device_intra),
+                       data)
     finally:
         torch.set_num_threads(threads)
     assert asked == [], f"the port consulted dav1d_tpu.dispatch: {asked}"
@@ -258,6 +269,13 @@ COMMITTED = {
     "lr_1080p_8bit.ivf": {"itx_blocks": 23361, "inter_blocks": 2491,
                           "mc_blocks": 2337, "lr_wiener_units": 327,
                           "lr_sgr_units": 16},
+    # film grain on every frame (plain grain on the CPU)
+    "grain_1080p_8bit.ivf": {"itx_blocks": 25418, "inter_blocks": 3466,
+                             "mc_blocks": 3282},
+    "grain_hbd10_352x288.ivf": {"itx_blocks": 517, "inter_blocks": 87,
+                                "mc_blocks": 80},
+    # two key frames, palette coded
+    "screen_1080p_8bit.ivf": {"itx_blocks": 196, "inter_blocks": 0},
 }
 
 
@@ -382,3 +400,222 @@ def test_cuda_device_without_cuda_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Decoder(Settings(two_pass=True, max_frame_delay=4))
+
+
+# ---- device intra and film grain ------------------------------------------
+
+def _intra_case(tmp_path, name):
+    sys.path.insert(0, str(REPO / "tests"))
+    from test_torch_ipred import encode_intra_case
+
+    return encode_intra_case(tmp_path, name)
+
+
+def _mixed_stream(tmp_path):
+    """tests/test_device_intra.test_mixed_stream's recipe: key frames every
+    3 frames, inter frames between."""
+    from aom_enc import write_ivf_packets
+    from test_device_intra import noisy_frames
+
+    w, h, n = 128, 96, 5
+    enc = AomEncoder(width=w, height=h, usage="good", kf_max_dist=3, lag=0,
+                     cpu_used=4, q=40)
+    pkts = enc.encode(noisy_frames(n, w, h))
+    enc.close()
+    path = tmp_path / "mixed.ivf"
+    write_ivf_packets(path, pkts, w, h)
+    return path.read_bytes()
+
+
+# what tests/test_device_intra.CASES lacks: 4:2:2 and 12-bit key frames
+EXTRA_INTRA = {"i422": dict(fmt="422"), "hbd12": dict(bitdepth=12)}
+
+
+def _extra_intra(tmp_path, name):
+    """Two key frames of noisy_frames at 96x64 in 4:2:2 or at 12-bit."""
+    import numpy as np
+    from aom_enc import write_ivf_packets
+    from test_device_intra import noisy_frames
+
+    kw = EXTRA_INTRA[name]
+    w, h, n = 96, 64, 2
+    enc = AomEncoder(width=w, height=h, usage="good", kf_max_dist=1, lag=0,
+                     cpu_used=3, q=36, **kw)
+    frames = noisy_frames(n, w, h, bitdepth=kw.get("bitdepth", 8))
+    if kw.get("fmt") == "422":
+        frames = [[f[0], np.repeat(f[1], 2, 0)[:h], np.repeat(f[2], 2, 0)[:h]]
+                  for f in frames]
+    pkts = enc.encode(frames)
+    enc.close()
+    path = tmp_path / f"{name}.ivf"
+    write_ivf_packets(path, pkts, w, h)
+    return path.read_bytes()
+
+
+INTRA_CASES = ["angular_cfl", "hbd10", "i444_odd", "mono", "sb64",
+               "screen_palette", "tiles", "mixed", *EXTRA_INTRA]
+
+
+@pytest.mark.parametrize("name", INTRA_CASES)
+def test_device_intra_matches_jax_host(tmp_path, name):
+    """The port with device_intra=True (phase B by wavefront levels, the
+    plain level steps on the CPU) on every tests/test_device_intra.CASES
+    stream, on test_mixed_stream's recipe and on 4:2:2 and 12-bit key
+    frames: the JAX host tier's md5, every frame on the device schedule,
+    its units counted."""
+    from dav1d_tpu_torch import devrt
+
+    if name == "mixed":
+        data = _mixed_stream(tmp_path)
+    elif name in EXTRA_INTRA:
+        data = _extra_intra(tmp_path, name)
+    else:
+        data = _intra_case(tmp_path, name)
+    with _device_env(DAV1D_TPU_DEVICE="0"):
+        host = _jax_md5(data)
+    port = _port_md5(data, device_intra=True)
+    counts = dict(devrt.COUNTS)
+    assert port == host, f"{name}: device intra diverges from the JAX host"
+    assert counts.get("intra_host_frames", 0) == 0, counts
+    units = sum(counts.get(f"intra_{k}_units", 0)
+                for k in ("pred", "cfl", "pal"))
+    assert units > 0 and counts["intra_levels"] > 0, counts
+    if name == "screen_palette":
+        assert counts["intra_pal_units"] > 0, counts
+
+
+@pytest.mark.parametrize("name", ["hbd10_128x96.ivf",
+                                  "screen_1080p_8bit.ivf"])
+def test_committed_stream_md5_device_intra(name):
+    """The committed 10-bit stream (its key frame holds a CFL unit) and
+    the palette stream decode to their committed md5 with device_intra
+    on the CPU."""
+    from dav1d_tpu_torch import devrt
+
+    want = json.loads((DATA / "md5.json").read_text())[name]
+    n, md5 = _port_md5((DATA / name).read_bytes(), device_intra=True)
+    assert (n, md5) == (want["frames"], want["md5"])
+    kind = "cfl" if name.startswith("hbd10") else "pal"
+    assert devrt.COUNTS[f"intra_{kind}_units"] > 0, dict(devrt.COUNTS)
+    assert devrt.COUNTS["intra_host_frames"] == 0
+
+
+def test_grain_hbd10_matches_jax():
+    """A 10-bit film-grain stream (the grain case's option at 10-bit):
+    the port's plain grain path equals the JAX host tier."""
+    w, h, n = 128, 96, 3
+    enc = AomEncoder(width=w, height=h, usage="good", kf_max_dist=9999,
+                     bitdepth=10, options={"denoise-noise-level": 25})
+    pkts = enc.encode(gradient_frames(n, w, h, bitdepth=10))
+    enc.close()
+    import io
+    import struct
+
+    buf = io.BytesIO()
+    buf.write(struct.pack("<4sHH4sHHIII", b"DKIF", 0, 32, b"AV01", w, h,
+                          30, 1, len(pkts)))
+    buf.write(b"\0\0\0\0")
+    for pts, d in pkts:
+        buf.write(struct.pack("<IQ", len(d), pts))
+        buf.write(d)
+    data = buf.getvalue()
+    with _device_env(DAV1D_TPU_DEVICE="0"):
+        host = _jax_md5(data)
+    assert _port_md5(data) == host
+
+
+def _decode_all(data, **kw):
+    from dav1d_tpu_torch.decoder import Decoder, Settings
+
+    dec = Decoder(Settings(two_pass=True, max_frame_delay=4), device="cpu",
+                  **kw)
+    for tu, _ in read_ivf(data):
+        dec.send_data(tu)
+        while dec.get_picture() is not None:
+            pass
+
+
+def test_device_intra_failure_raises(tmp_path, monkeypatch):
+    """No fallback: a failing launch in the device intra stage raises out
+    of the decode (the reference degrades to its host walk instead,
+    tests/test_device_intra.test_sticky_fallback_on_device_failure)."""
+    from dav1d_tpu_torch.ops import ipred
+
+    def failing(*args, **kw):
+        raise RuntimeError("ipred: CUDA launch failed: 719")
+
+    monkeypatch.setattr(ipred, "pred_level", failing)
+    with pytest.raises(RuntimeError, match="ipred: CUDA launch failed"):
+        _decode_all(_intra_case(tmp_path, "angular_cfl"),
+                    device_intra=True)
+
+
+def test_grain_failure_raises(monkeypatch):
+    """No fallback: a failing film-grain launch raises out of
+    get_picture."""
+    from dav1d_tpu_torch.ops import fg
+
+    def failing(*args, **kw):
+        raise RuntimeError("fg: CUDA launch failed: 719")
+
+    monkeypatch.setattr(fg, "apply_plane", failing)
+    with pytest.raises(RuntimeError, match="fg: CUDA launch failed"):
+        _decode_all((DATA / "grain_hbd10_352x288.ivf").read_bytes())
+
+
+def test_device_intra_on_cuda_without_cuda_raises():
+    import torch
+
+    from dav1d_tpu_torch.decoder import Decoder, Settings
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Decoder(Settings(two_pass=True, max_frame_delay=4), device="cuda",
+                device_intra=True)
+
+
+@pytest.mark.parametrize("kind,interintra", [(2, 0), (1, 1)])
+def test_schedule_leaves_intrabc_and_interintra_to_the_host(kind,
+                                                            interintra):
+    """The device intra schedule covers no frame with an intrabc block
+    (it copies from the canvas in decode order) or an interintra block
+    (phase A leaves it to the ordered walk): _enumerate_units returns
+    None there, and a plain inter block alone schedules nothing."""
+    import types
+
+    import numpy as np
+
+    from dav1d_tpu_torch.headers import PixelLayout
+    from dav1d_tpu_torch.native.decode_glue import CAP_BLOCK_DT
+    from dav1d_tpu_torch.recon import device_intra
+
+    rows = np.zeros(2, CAP_BLOCK_DT)
+    rows["kind"] = 1
+    rows[1]["kind"], rows[1]["interintra_type"] = kind, interintra
+    glue = types.SimpleNamespace(cap_blocks=rows)
+    f = types.SimpleNamespace(
+        ss_ver=1, ss_hor=1, layout=PixelLayout.I420, bitdepth=8, bw=8,
+        bh=8, seq_hdr=types.SimpleNamespace(intra_edge_filter=1),
+        planes=[np.zeros((32, 32), np.int32)] + [np.zeros((16, 16),
+                                                          np.int32)] * 2)
+    assert device_intra._enumerate_units(f, glue, [(0, 2)]) == (None, None)
+    sched, _ = device_intra._enumerate_units(f, glue, [(0, 1)])
+    assert sched == [{}, {}]
+
+
+def test_host_walk_frames_are_counted(tmp_path, monkeypatch):
+    """A frame the device schedule does not cover goes to the host walk:
+    the same output, counted in intra_host_frames, no unit launched."""
+    from dav1d_tpu_torch import devrt
+    from dav1d_tpu_torch.recon import device_intra
+
+    monkeypatch.setattr(device_intra, "_enumerate_units",
+                        lambda f, glue, ranges: (None, None))
+    data = _intra_case(tmp_path, "sb64")
+    with _device_env(DAV1D_TPU_DEVICE="0"):
+        host = _jax_md5(data)
+    assert _port_md5(data, device_intra=True) == host
+    assert devrt.COUNTS["intra_host_frames"] == host[0]
+    assert not any(k.endswith("_units") and k.startswith("intra_")
+                   for k in devrt.COUNTS), dict(devrt.COUNTS)

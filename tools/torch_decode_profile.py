@@ -19,11 +19,12 @@ Like chip_smoke.py it fails if the decode imported jax.  Run from the
 repository root; with a path argument the chrome trace is written there:
 
     python3 tools/torch_decode_profile.py [--stream NAME] [--tree DIR]
-        [trace.json]
+        [--device-intra] [trace.json]
 
 ``--tree DIR``: decode with the package and chip_smoke.py of another
 checkout (an unpacked parent commit, to compare two versions on one
 card); the stream is still read from this checkout's data directory.
+``--device-intra``: decode with ``Decoder(..., device_intra=True)``.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--stream", default="inter_1080p_8bit.ivf")
     ap.add_argument("--tree", type=Path, default=ROOT)
+    ap.add_argument("--device-intra", action="store_true")
     ap.add_argument("trace", nargs="?")
     opt = ap.parse_args()
     sys.path.insert(0, str(opt.tree.resolve()))
@@ -53,12 +55,14 @@ def main() -> int:
         return 1
     from dav1d_tpu_torch import devrt
 
-    print(f"tree {opt.tree}, stream {opt.stream}")
+    print(f"tree {opt.tree}, stream {opt.stream}"
+          f"{', device intra' if opt.device_intra else ''}")
     device = torch.device("cuda", 0)
     data = (ROOT / "dav1d_tpu_torch" / "data" / opt.stream).read_bytes()
-    chip_smoke.decode(data, device, hashing=False)  # warm-up + build
+    kw = {"device_intra": True} if opt.device_intra else {}
+    chip_smoke.decode(data, device, hashing=False, **kw)  # warm-up + build
     devrt.SPANS, devrt.XFER = {}, {"up": 0, "down": 0}
-    n, _, _ = chip_smoke.decode(data, device, hashing=False)
+    n, _, _ = chip_smoke.decode(data, device, hashing=False, **kw)
     stages = {k: round(v * 1e3 / n, 3) for k, v in sorted(devrt.SPANS.items())}
     print(f"stages (host ms per frame): {stages}")
     print(f"bytes per frame: upload {devrt.XFER['up'] // n}, download "
@@ -68,7 +72,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        n, _, _ = chip_smoke.decode(data, device, hashing=False)
+        n, _, _ = chip_smoke.decode(data, device, hashing=False, **kw)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     if opt.trace:

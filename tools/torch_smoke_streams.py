@@ -12,7 +12,16 @@ streams and their expected md5s are made here and committed:
   cpu_used=4, q=45 with super-res (every frame coded 960 wide and
   upscaled to 1920) and loop restoration (Wiener on every plane);
 - ``lr_1080p_8bit.ivf``: the same settings without super-res: loop
-  restoration at full width, with self-guided units in the key frame.
+  restoration at full width, with self-guided units in the key frame;
+- ``grain_1080p_8bit.ivf``: 1080p 8-bit 4:2:0, 4 frames, libaom
+  cpu_used=8, q=45 with film grain (denoise-noise-level=25, the
+  tests/test_device_e2e.CASES["grain"] option at full width);
+- ``grain_hbd10_352x288.ivf``: the same option at 352x288 10-bit, 3
+  frames (the 10-bit grain LUTs and the scaling's sub-interpolation);
+- ``screen_1080p_8bit.ivf``: two 1080p key frames of
+  tests/test_device_intra.screen_frames with palette coding
+  (enable-palette=1, enable-intrabc=0, tune-content=screen), the
+  highest cpu_used that still codes palette blocks.
 
 The md5 of each stream is the JAX package's host tier
 (DAV1D_TPU_DEVICE=0) over every plane of every output picture, in the
@@ -35,6 +44,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
+sys.path.insert(0, str(ROOT / "tests"))
 
 OUT = ROOT / "dav1d_tpu_torch" / "data"
 
@@ -57,7 +67,32 @@ STREAMS = {
         enc=dict(usage="good", cpu_used=4, q=45, kf_max_dist=9999, lag=0,
                  options={"enable-order-hint": 1,
                           "enable-restoration": 1})),
+    "grain_1080p_8bit.ivf": dict(
+        n=4, w=1920, h=1080, bitdepth=8,
+        enc=dict(usage="good", cpu_used=8, q=45, kf_max_dist=9999, lag=0,
+                 options={"enable-order-hint": 1,
+                          "denoise-noise-level": 25})),
+    "grain_hbd10_352x288.ivf": dict(
+        n=3, w=352, h=288, bitdepth=10,
+        enc=dict(usage="good", kf_max_dist=9999,
+                 options={"denoise-noise-level": 25})),
+    "screen_1080p_8bit.ivf": dict(
+        n=2, w=1920, h=1080, bitdepth=8, frames="screen",
+        enc=dict(usage="good", cpu_used=8, q=40, kf_max_dist=1, lag=0,
+                 options={"enable-palette": 1, "enable-intrabc": 0,
+                          "tune-content": "screen"})),
 }
+
+
+def _frames(spec):
+    from aom_enc import gradient_frames
+
+    n, w, h, bd = spec["n"], spec["w"], spec["h"], spec["bitdepth"]
+    if spec.get("frames") == "screen":
+        from test_device_intra import screen_frames
+
+        return screen_frames(n, w, h, bitdepth=bd)
+    return gradient_frames(n, w, h, bitdepth=bd)
 
 
 def _host_md5(data: bytes):
@@ -78,7 +113,7 @@ def _host_md5(data: bytes):
 
 def main() -> None:
     os.environ["DAV1D_TPU_DEVICE"] = "0"
-    from aom_enc import AomEncoder, gradient_frames, write_ivf_packets
+    from aom_enc import AomEncoder, write_ivf_packets
 
     OUT.mkdir(parents=True, exist_ok=True)
     names = sys.argv[1:] or list(STREAMS)
@@ -88,7 +123,7 @@ def main() -> None:
         spec = STREAMS[name]
         w, h, bd = spec["w"], spec["h"], spec["bitdepth"]
         enc = AomEncoder(width=w, height=h, bitdepth=bd, **spec["enc"])
-        pkts = enc.encode(gradient_frames(spec["n"], w, h, bitdepth=bd))
+        pkts = enc.encode(_frames(spec))
         enc.close()
         path = OUT / name
         write_ivf_packets(path, pkts, w, h)
