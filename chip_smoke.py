@@ -49,7 +49,10 @@ Phases; any failure exits non-zero:
    every flag, and edge-availability combination on the luma canvas and
    the stacked chroma pair, CFL units (ipred_cfl) on the stacked chroma
    pair with the luma canvas, palette units (ipred_pal), on random and
-   extreme pixels), bit depths 8/10/12;
+   extreme pixels; the walk (ipred_walk, every level of a chain in one
+   launch) on six levels of prediction and palette units on the luma
+   canvas and of all three kinds on the stacked chroma pair, and on 300
+   levels of 6 units), bit depths 8/10/12;
 4. decode the committed 1080p 8-bit inter stream (the main path of the
    earlier kernels), the committed 10-bit stream and the two committed
    1080p loop-restoration streams (super-res + Wiener on every frame;
@@ -72,10 +75,15 @@ Phases; any failure exits non-zero:
    fg launch per plane with grain on every picture; the main stream, the
    10-bit stream and the palette stream again with
    ``Decoder(..., device_intra=True)`` against the same md5s, frame by
-   frame one launch of each intra kernel per wavefront level holding
-   units of its kind, and none on a frame the device stage hands to the
-   host walk (their count is printed); ipred and ipred_cfl must launch on
-   the main stream, ipred_pal on the palette stream;
+   frame one ipred_walk launch per chain holding units (luma, the
+   stacked chroma pair) and no launch of a per-level kernel, none on a
+   frame the device stage hands to the host walk (their count is
+   printed); on the main stream's key frame each walk runs 20 times from
+   a copy of its input canvas, bitwise equal each time, to the decode's
+   output and to the frame's levels replayed through the per-level
+   kernels (ipred, ipred_cfl, ipred_pal) from the same copy, both timed
+   with CUDA events; a walk of 4,096 one-unit levels gives the latency
+   floor of a level (one handoff through L2 plus the smallest unit);
 5. time the 1080p decode (frames/s, best of 3 after the warm-up decode),
    then decode it once more with the stage spans and transfer counters
    on, capturing the MC, CDEF filter and itx kernels' real calls: each
@@ -98,10 +106,13 @@ Phases; any failure exits non-zero:
    ``pass2.mc.launch`` span on the decode's own job lists; film grain's
    spans and transfer bytes per picture, the ``pass2.intra.*`` spans of
    the intra streams with device intra off and on, its levels, units per
-   kind and host-walk frames, each frame's level launches replayed back
-   to back (device time); the bound per frame of K9-K12 on their
-   decodes' calls; K9-K12 timed on those calls (the largest grained
-   plane; the level with the most units of each kind).
+   kind and host-walk frames, each frame's walks replayed back to back
+   (device time); the bound per frame of K9, the walk and K10-K12 (their
+   units in the walks) on their decodes' calls; K9 and K10-K12 timed on
+   those calls (the largest grained plane; the level with the most units
+   of each kind, from its walk's input canvas), the walk on the main key
+   frame's luma chain, its plain version once (held equal to the walk),
+   and its latency floor (its levels times the floor of a level).
 
 The line before the last is the kernels' JSON report; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -110,6 +121,7 @@ The line before the last is the kernels' JSON report; the last line is
 from __future__ import annotations
 
 import collections
+import functools
 import hashlib
 import json
 import struct
@@ -132,15 +144,20 @@ FG_STREAM = "grain_1080p_8bit.ivf"
 FG_HBD_STREAM = "grain_hbd10_352x288.ivf"
 # two palette-coded 1080p key frames
 SCREEN_STREAM = "screen_1080p_8bit.ivf"
-INTRA_KERNELS = ("ipred", "ipred_cfl", "ipred_pal")
-INTRA_KIND = {"ipred": "pred", "ipred_cfl": "cfl", "ipred_pal": "pal"}
+# one level of one kind a launch (K10-K12): held against their plain
+# versions and against the walk, on no decode path since the walk
+LEVEL_KERNELS = ("ipred", "ipred_cfl", "ipred_pal")
+KIND_OF = {"ipred": 0, "ipred_cfl": 1, "ipred_pal": 2}
+# every level of a chain in one launch: the device intra path
+INTRA_KERNELS = LEVEL_KERNELS + ("ipred_walk",)
 # decoded with device_intra=True as well: the main stream's key frame
 # (prediction and CFL units), the 10-bit stream, the palette stream
 INTRA_STREAMS = (MAIN_STREAM, HBD_STREAM, SCREEN_STREAM)
-# the decode whose launches each of K9-K12 reports: (stream, device_intra)
-PATH_OF = {"fg": (FG_STREAM, False), "ipred": (MAIN_STREAM, True),
-           "ipred_cfl": (MAIN_STREAM, True),
-           "ipred_pal": (SCREEN_STREAM, True)}
+# the decode whose launches fg and the walk report: (stream, device_intra)
+PATH_OF = {"fg": (FG_STREAM, False), "ipred_walk": (MAIN_STREAM, True)}
+# the stream whose walks give each per-level kernel its timed level
+LEVEL_STREAM = {"ipred": MAIN_STREAM, "ipred_cfl": MAIN_STREAM,
+                "ipred_pal": SCREEN_STREAM}
 
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -169,6 +186,8 @@ KERNELS = {
                   "dav1d_tpu/recon/device_intra.py:320"),
     "ipred_pal": ("dav1d_tpu_torch/csrc/ipred.cu",
                   "dav1d_tpu/recon/device_intra.py:406"),
+    "ipred_walk": ("dav1d_tpu_torch/csrc/ipred.cu",
+                   "dav1d_tpu/recon/device_intra.py:260"),
 }
 # kernels that the main stream's default decode does not launch
 OTHER_PATHS = LR_KERNELS + ("fg",) + INTRA_KERNELS
@@ -712,13 +731,58 @@ IP_SIZES = [(4, 4), (8, 4), (4, 8), (8, 8), (16, 8), (8, 16), (16, 16),
 IP_CHROMA_SIZES = [s for s in IP_SIZES if max(s) <= 32]
 
 
+def _walk_schedule(rng, H, W, ph, YH, YW, n_levels, sizes, bd, kinds,
+                   per=None):
+    """A chain's walk table (ops/ipred.walk) of ``n_levels`` levels on an
+    (H, W) canvas of ph-row planes: each level a :func:`_level_units`
+    layout (``per`` of its units, when given), so that no unit reads a
+    cell another unit of its level writes while each level reads what
+    the levels below it wrote; each unit of a kind drawn from ``kinds``
+    (0 prediction, 1 CFL up to 32x32: a DC variant, an origin in the
+    (YH, YW) luma canvas, alpha, padding; 2 palette: colours, an index
+    map), sorted by kind within its level.  Returns (jobs, tags, counts,
+    index maps)."""
+    import numpy as np
+
+    rows, tags, counts, maps, off = [], [], [], [], 0
+    for level in range(n_levels):
+        J = _level_units(rng, H, W, ph, sizes)
+        if per is not None:
+            J = J[np.sort(rng.choice(len(J), min(per, len(J)),
+                                     replace=False))]
+        kind = rng.choice(np.asarray(kinds), len(J))
+        kind[(kind == 1) & (np.maximum(J[:, 2], J[:, 3]) > 32)] = 0
+        order = np.argsort(kind, kind="stable")
+        for r, k in zip(J[order], kind[order]):
+            w, h = int(r[2]), int(r[3])
+            if k == 1:
+                r[14] = rng.choice([0, 3, 4, 5])  # the DC variants
+                r[10], r[11] = rng.integers(0, YH), rng.integers(0, YW)
+                r[12] = rng.integers(-16, 17)  # alpha
+                r[13], r[15] = rng.integers(0, w // 4), rng.integers(0,
+                                                                     h // 4)
+            elif k == 2:
+                r[4], r[8:16] = off, rng.integers(0, 1 << bd, 8)
+                maps.append(rng.integers(0, 8, w * h).astype(np.uint8))
+                off += w * h
+            rows.append(r)
+            tags.append(level << 2 | int(k))
+        counts.append(len(J))
+    return (np.asarray(rows, np.int32).reshape(-1, 16),
+            np.asarray(tags, np.int32), np.asarray(counts, np.int32),
+            np.concatenate(maps + [np.zeros(1, np.uint8)]))
+
+
 def _ipred_cases(rng, device, bd, shapes=SHAPES):
-    """K10-K12 cases on 1080p-shaped canvases: prediction units on the
-    luma canvas and on the stacked chroma pair (every size 4..64, mode,
-    angle, edge combination), CFL units on the stacked chroma pair with
-    the luma canvas, palette units on the luma canvas; random and
-    extreme pixels.  Each call works on a copy of the canvas (the kernels
-    write in place)."""
+    """K10-K12 and walk cases on 1080p-shaped canvases: prediction units
+    on the luma canvas and on the stacked chroma pair (every size 4..64,
+    mode, angle, edge combination), CFL units on the stacked chroma pair
+    with the luma canvas, palette units on the luma canvas; walks of six
+    levels mixing prediction and palette units (luma) and all three kinds
+    (stacked chroma), and one of 300 levels of 6 units each (luma, the
+    handoff between levels over and over); random and extreme pixels.
+    Each call works on a copy of the canvas (the kernels write in
+    place)."""
     import numpy as np
     import torch
 
@@ -729,7 +793,16 @@ def _ipred_cases(rng, device, bd, shapes=SHAPES):
 
     (YH, YW), (CH, CW) = shapes["luma"][:2], shapes["chroma"][:2]
     r = 1 << bd
-    pred, cfl, pal = [], [], []
+    pred, cfl, pal, walk = [], [], [], []
+
+    def walk_case(label, canvas, luma, resid, ph, ss, sched):
+        J, T, C, pidx = sched
+        walk.append((f"{label} {len(C)} levels {len(J)} units bd{bd}",
+                     lambda c, *a: oip.walk(c.clone(), *a),
+                     lambda c, *a: oip.walk_plain(c.clone(), *a),
+                     (canvas, luma, resid, dev(J), dev(T), dev(C), dev(pidx),
+                      ph, ss, ss, bd)))
+
     for extremes in (False, True):
         lbl = " extremes" if extremes else ""
         make = _extremes if extremes else (
@@ -773,7 +846,16 @@ def _ipred_cases(rng, device, bd, shapes=SHAPES):
                     lambda c, *a: oip.pal_level(c.clone(), *a),
                     lambda c, *a: oip.pal_level_plain(c.clone(), *a),
                     (luma, rl, dev(jobs), pidx, bd)))
-    return {"ipred": pred, "ipred_cfl": cfl, "ipred_pal": pal}
+        walk_case(f"luma{lbl}", luma, None, rl, YH, 0, _walk_schedule(
+            rng, YH, YW, YH, YH, YW, 6, IP_SIZES, bd, (0, 2)))
+        walk_case(f"stacked chroma{lbl}", chroma, luma, rc, CH, 1,
+                  _walk_schedule(rng, 2 * CH, CW, CH, YH, YW, 6,
+                                 IP_CHROMA_SIZES, bd, (0, 1, 2)))
+        if not extremes:
+            walk_case("luma deep", luma, None, rl, YH, 0, _walk_schedule(
+                rng, YH, YW, YH, YH, YW, 300, IP_SIZES, bd, (0, 2), per=6))
+    return {"ipred": pred, "ipred_cfl": cfl, "ipred_pal": pal,
+            "ipred_walk": walk}
 
 def make_cases(device, shapes=SHAPES, seed=0):
     """Kernel inputs at the main path's shapes for bit depths 8/10/12:
@@ -1270,25 +1352,41 @@ def work(name, args):
     raise KeyError(name)
 
 
-def _ipred_work(name, args):
-    """(bytes, operations) of one level launch, counted from below: per
+def _units_work(kind, jobs, ss_hor=0, ss_ver=0):
+    """(bytes, operations) of units of one kind, counted from below: per
     unit its job row, its edge reads (2w + 2h + 1 canvas pixels; none for
     palette), its residual window and output window (for CFL the luma
     pixels under it, for palette its index map); per pixel the
     prediction's one blend (2), the residual add (1) and the clip (2)."""
-    jobs = args[3 if name == "ipred_cfl" else 2].long()
-    w, h = jobs[:, 2], jobs[:, 3]
+    j = jobs.long()
+    w, h = j[:, 2], j[:, 3]
     pix = w * h
     per = 8 * pix + 64
-    if name == "ipred":
+    if kind == 0:
         per = per + 4 * (2 * w + 2 * h + 1)
-    elif name == "ipred_cfl":
-        ss_hor, ss_ver = args[5], args[6]
+    elif kind == 1:
         per = per + 4 * (2 * w + 2 * h + 1) + 4 * pix * ((1 + ss_hor)
                                                          * (1 + ss_ver))
     else:
         per = per + pix
     return int(per.sum()), int(5 * pix.sum())
+
+
+def _ipred_work(name, args):
+    """(bytes, operations) of one intra launch: a level of one kind
+    (K10-K12), or a walk (its units of each kind, its tags and level
+    counts)."""
+    if name == "ipred_walk":
+        jobs, tags, counts = args[3], args[4].long(), args[5]
+        nbytes, ops = 4 * (tags.numel() + counts.numel()), 0
+        for kind in range(3):
+            b, o = _units_work(kind, jobs[(tags & 3) == kind], args[8],
+                               args[9])
+            nbytes, ops = nbytes + b, ops + o
+        return nbytes, ops
+    if name == "ipred_cfl":
+        return _units_work(1, args[3], args[5], args[6])
+    return _units_work(KIND_OF[name], args[2])
 
 
 def _lr_work(name, jobs):
@@ -1430,19 +1528,27 @@ class ChainLog:
 class FrameLog:
     """Frame by frame, what film grain and the device intra stage did
     during a decode: wraps recon/filmgrain.apply_grain (the planes that
-    get grain, the fg launches and transfer bytes it added) and
+    get grain, the fg launches and transfer bytes it added),
     recon/device_intra.intra_frame_device (whether the frame ran on the
-    device, the ipred launches and the schedule's counts it added, and,
-    when devrt.CAPTURE is on, the slice of captured launches it made)."""
+    device, the intra launches and the schedule's counts it added, and,
+    when devrt.CAPTURE is on, the slice of captured launches it made) and
+    ops/ipred.walk (each walk's chain, 0 luma or 1 the stacked chroma
+    pair, and units; with ``keep_walks``, copies of its input canvas and
+    luma canvas, its other arguments and a copy of its output)."""
+
+    def __init__(self, keep_walks=False):
+        self.keep_walks = keep_walks
 
     def __enter__(self):
         from dav1d_tpu_torch import devrt
+        from dav1d_tpu_torch.ops import ipred as oip
         from dav1d_tpu_torch.recon import device_intra, filmgrain
 
         self.grain, self.intra = [], []
         self._saved = (filmgrain.apply_grain,
-                       device_intra.intra_frame_device)
-        grain, intra = self._saved
+                       device_intra.intra_frame_device, oip.walk)
+        grain, intra, walk = self._saved
+        walks = []
 
         def logged_grain(pic, device, dev_planes=None):
             planes = len(filmgrain.grain_tables(pic)[1])
@@ -1458,22 +1564,44 @@ class FrameLog:
             l0 = collections.Counter(devrt.LAUNCHES)
             c0 = collections.Counter(devrt.COUNTS)
             k0 = len(devrt.CAPTURE or ())
+            walks.clear()
             ok = intra(f, st)
             self.intra.append({
                 "device": ok, "captured": (k0, len(devrt.CAPTURE or ())),
                 "launches": {k: devrt.LAUNCHES[k] - l0[k]
                              for k in INTRA_KERNELS},
-                "counts": dict(devrt.COUNTS - c0)})
+                "counts": dict(devrt.COUNTS - c0), "walks": list(walks)})
             return ok
+
+        def logged_walk(canvas, luma, resid, jobs, tags, counts, pidx,
+                        *rest, **kw):
+            rec = {"chain": int(luma is not None
+                                and luma.data_ptr() != canvas.data_ptr()),
+                   "units": int(jobs.shape[0])}
+            if self.keep_walks:
+                rec["args"] = (canvas.clone(), (canvas if luma is None
+                                                else luma).clone(), resid,
+                               jobs, tags, counts,
+                               None if pidx is None else pidx.clone(), *rest)
+                rec["kw"] = kw
+            out = walk(canvas, luma, resid, jobs, tags, counts, pidx, *rest,
+                       **kw)
+            if self.keep_walks:
+                rec["out"] = out.clone()
+            walks.append(rec)
+            return out
 
         filmgrain.apply_grain = logged_grain
         device_intra.intra_frame_device = logged_intra
+        oip.walk = logged_walk
         return self
 
     def __exit__(self, *exc):
+        from dav1d_tpu_torch.ops import ipred as oip
         from dav1d_tpu_torch.recon import device_intra, filmgrain
 
-        filmgrain.apply_grain, device_intra.intra_frame_device = self._saved
+        (filmgrain.apply_grain, device_intra.intra_frame_device,
+         oip.walk) = self._saved
         return False
 
 
@@ -1509,25 +1637,141 @@ def check_grain_frames(name, frames, n):
 
 def check_intra_frames(name, frames):
     """Per frame of a device_intra decode: on a frame the device stage
-    took, one launch per level holding units of a kind, for each kind
-    (so none on a frame without intra units); on a frame it handed to
-    the host walk, none.  Returns (launches per kernel, host frames)."""
+    took, one ipred_walk launch per chain holding units (luma, the
+    stacked chroma pair: each at most once, none without units), as many
+    as the stage counted, and no launch of a per-level kernel; on a frame
+    it handed to the host walk, none.  Returns (launches per kernel, host
+    frames)."""
     total = collections.Counter()
     host = 0
     for i, fr in enumerate(frames):
-        k, c = fr["launches"], fr["counts"]
+        k, c, walks = fr["launches"], fr["counts"], fr["walks"]
         if not fr["device"]:
             host += 1
-            _require(not any(k.values()), f"{name} frame {i}: host-walk "
-                     f"frame with ipred launches {k}")
+            _require(not any(k.values()) and not walks, f"{name} frame "
+                     f"{i}: host-walk frame with intra launches {k}")
             continue
-        for tag, kind in INTRA_KIND.items():
-            _require(k[tag] == c.get(f"intra_{kind}_levels", 0),
-                     f"{name} frame {i}: {k[tag]} {tag} launches for "
-                     f"{c.get(f'intra_{kind}_levels', 0)} levels with "
-                     f"{kind} units")
+        _require(not any(k[t] for t in LEVEL_KERNELS), f"{name} frame {i}: "
+                 f"per-level launches {k}")
+        chains = [w["chain"] for w in walks]
+        units = sum(c.get(f"intra_{kind}_units", 0)
+                    for kind in ("pred", "cfl", "pal"))
+        _require(k["ipred_walk"] == len(walks) == len(set(chains))
+                 == c.get("intra_walk_launches", 0) <= 2
+                 and all(w["units"] > 0 for w in walks)
+                 and sum(w["units"] for w in walks) == units,
+                 f"{name} frame {i}: {k['ipred_walk']} ipred_walk launches "
+                 f"for the walks (chain, units) "
+                 f"{[(w['chain'], w['units']) for w in walks]}, {units} "
+                 f"units, counts {c}")
         total.update(k)
     return dict(total), host
+
+
+def key_frame_walks(walks, reps=20):
+    """The walks of one frame (FrameLog records with ``keep_walks``):
+    each run ``reps`` times from a copy of its input canvas, every result
+    bitwise equal to the first, to the decode's own output and to the
+    frame's levels replayed through the per-level kernels (K10-K12) from
+    the same canvas.  Times (CUDA events): the replay's launches as the
+    Python loop issues them, and again back to back behind a spin kernel
+    (device time); the walk's wrapper, and its bare launch behind a spin
+    kernel (device time).  Returns one dict a walk."""
+    import numpy as np
+    import torch
+
+    from dav1d_tpu_torch import devrt
+    from dav1d_tpu_torch.ops import ipred as oip
+
+    out = []
+    for w in walks:
+        before, luma, resid, jobs, tags, counts, pidx, ph, ssh, ssv, bd = \
+            w["args"]
+        first = None
+        for _ in range(reps):
+            c = before.clone()
+            oip.walk(c, luma, resid, jobs, tags, counts, pidx, ph, ssh, ssv,
+                     bd, **w["kw"])
+            torch.cuda.synchronize()
+            if first is None:
+                first = c
+            _require(torch.equal(c, first), f"chain {w['chain']}: a repeated "
+                     "walk differs from the first")
+        _require(torch.equal(first, w["out"]), f"chain {w['chain']}: the "
+                 "walk differs from the decode's")
+        T = tags.cpu().numpy()
+        ends = np.cumsum(counts.cpu().numpy())
+        c = before.clone()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        devrt.CAPTURE = []
+        try:
+            torch.cuda.synchronize()
+            e0.record()
+            for a, b in zip(np.concatenate([[0], ends[:-1]]), ends):
+                for kind in range(3):
+                    sel = np.flatnonzero((T[a:b] & 3) == kind)
+                    if not len(sel):
+                        continue
+                    J = jobs[a + int(sel[0]):a + int(sel[-1]) + 1]
+                    if kind == 0:
+                        oip.pred_level(c, resid, J, ph, bd)
+                    elif kind == 1:
+                        oip.cfl_level(c, luma, resid, J, ph, ssh, ssv, bd)
+                    else:
+                        oip.pal_level(c, resid, J, pidx, bd)
+            e1.record()
+            captured = devrt.CAPTURE
+        finally:
+            devrt.CAPTURE = None
+        torch.cuda.synchronize()
+        _require(torch.equal(c, first), f"chain {w['chain']}: the walk "
+                 "differs from its levels through the per-level kernels")
+        levels_ms = e0.elapsed_time(e1)
+        levels_dev_ms, queue_ms = replay_ms(captured)
+        scratch = before.clone()
+        args = (scratch, luma, resid, jobs, tags, counts, pidx, ph, ssh, ssv,
+                bd)
+        kfn = functools.partial(oip.walk, **w["kw"])
+        walk_ms = min(cuda_ms(lambda: kfn(*args)) for _ in range(2))
+        walk_dev_ms, _ = launch_ms(kfn, args)
+        out.append({"chain": w["chain"], "levels": len(ends),
+                    "units": int(ends[-1]), "repeats": reps,
+                    "level_launches": len(captured),
+                    "levels_ms": levels_ms, "levels_device_ms": levels_dev_ms,
+                    "levels_host_queue_ms": queue_ms, "walk_ms": walk_ms,
+                    "walk_device_ms": walk_dev_ms})
+    return out
+
+
+def walk_floor_ms(device, levels=4096):
+    """Device ms a level of a walk of ``levels`` levels of one unit each,
+    a 4x4 palette unit (one phase) or a 4x4 DC_128 prediction unit
+    (gather, prep, output), every level on the canvas's same cells: one
+    handoff through L2 plus the smallest unit, the least a dependent
+    level can cost.  Bare launches behind a spin kernel (launch_ms)."""
+    import numpy as np
+    import torch
+
+    from dav1d_tpu_torch.ops import ipred as oip
+
+    out = {}
+    canvas = torch.zeros((64, 64), dtype=torch.int32, device=device)
+    resid = torch.zeros_like(canvas)
+    for name, kind, row in (
+            ("pal", 2, [4, 4, 4, 4, 0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8]),
+            ("pred", 0, [4, 4, 4, 4, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 5, 0])):
+        J = np.tile(np.asarray(row, np.int32), (levels, 1))
+        T = (np.arange(levels, dtype=np.int32) << 2) | kind
+        C = np.ones(levels, np.int32)
+        pidx = torch.zeros(16, dtype=torch.uint8, device=device)
+        args = (canvas, None, resid, *(torch.from_numpy(a).to(device)
+                                       for a in (J, T, C)),
+                pidx, 64, 0, 0, 8)
+        kfn = functools.partial(oip.walk, max_ctas=oip.walk_ctas(C))
+        ms, _ = launch_ms(kfn, args, reps=5)
+        out[name] = ms / levels
+    return out
+
 
 def check_lr_frames(name, frames, n):
     """The restoration streams' frame-by-frame launch checks (phase 4)."""
@@ -1552,6 +1796,7 @@ def check_lr_frames(name, frames, n):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1690,13 +1935,13 @@ def main() -> int:
         if (name, False) == PATH_OF["fg"]:
             launches["fg"] = devrt.LAUNCHES["fg"]
     decode_checked(SCREEN_STREAM, device)
-    # device intra: the same md5s; per frame one launch per level and kind
-    # present, none on host-walk or all-inter frames
-    intra_report = {}
+    # device intra: the same md5s; per frame one walk per chain holding
+    # units, no per-level launch, none on host-walk or all-inter frames
+    intra_report, walk_logs = {}, {}
     for name in INTRA_STREAMS:
         devrt.LAUNCHES.clear()
         devrt.COUNTS.clear()
-        with FrameLog() as log:
+        with FrameLog(keep_walks=name in LEVEL_STREAM.values()) as log:
             decode_checked(name, device, device_intra=True)
         got, host = check_intra_frames(name, log.intra)
         counts = {k: v for k, v in devrt.COUNTS.items()
@@ -1705,13 +1950,40 @@ def main() -> int:
                               "counts": counts,
                               "frames": len(log.intra)}
         print(f"  {name} device_intra: launches {got}, host-walk frames "
-              f"{host}, counts {counts}", flush=True)
-        for k in INTRA_KERNELS:
-            if PATH_OF[k] == (name, True):
+              f"{host}, counts {counts}, walks per frame (chain, units) "
+              f"{[[(w['chain'], w['units']) for w in fr['walks']] for fr in log.intra]}",
+              flush=True)
+        _require(got.get("ipred_walk", 0) >= 1, f"{name}: no ipred_walk "
+                 "launch with device_intra")
+        if PATH_OF["ipred_walk"] == (name, True):
+            for k in INTRA_KERNELS:
                 launches[k] = got.get(k, 0)
-    for k in ("fg",) + INTRA_KERNELS:
+        walk_logs[name] = log.intra
+    for k in ("fg", "ipred_walk"):
         _require(launches.get(k, 0) >= 1, f"{k}: no launch on "
                  f"{PATH_OF[k][0]}")
+    # the main stream's key frame: its walks repeated, and replayed level
+    # by level through K10-K12, from the same canvas (outside the counted
+    # decodes)
+    key = walk_logs[MAIN_STREAM][0]
+    _require(key["device"] and key["walks"], f"{MAIN_STREAM}: the key "
+             "frame made no walk")
+    key_walks = key_frame_walks(key["walks"])
+    for r in key_walks:
+        print(f"  {MAIN_STREAM} key frame chain {r['chain']}: {r['levels']} "
+              f"levels, {r['units']} units; {r['repeats']} walks bitwise "
+              f"equal to each other, to the decode's and to its "
+              f"{r['level_launches']} per-level launches; walk "
+              f"{r['walk_ms']:.4f} ms (device {r['walk_device_ms']:.4f}), "
+              f"per-level launches {r['levels_ms']:.3f} ms as issued "
+              f"(device {r['levels_device_ms']:.3f} back to back, "
+              f"{r['levels_host_queue_ms']:.1f} ms to queue them)",
+              flush=True)
+    floor = walk_floor_ms(device)
+    print(f"  walk latency floor a level (one handoff plus the smallest "
+          f"unit): {floor['pal'] * 1e3:.3f} us (4x4 palette), "
+          f"{floor['pred'] * 1e3:.3f} us (4x4 DC_128 prediction)",
+          flush=True)
 
     print("== 5. timing", flush=True)
     runs = []
@@ -1872,10 +2144,10 @@ def main() -> int:
           f"bytes {grain_report['bytes_per_picture']}, pictures read from "
           f"resident planes {grain_report['planes_resident']} of {gn}",
           flush=True)
-    # device intra: the pass2.intra.* spans with it off and on, the
-    # device timeline of each frame's levels (events around the stage),
-    # and every level launch of the decode again, back to back behind a
-    # spin kernel (the levels' device time without the host between them)
+    # device intra: the pass2.intra.* spans with it off and on, and every
+    # walk launch of the decode again, back to back behind a spin kernel
+    # (the walks' device time without the host between them; in place on
+    # the finished canvases, which no unit's control flow depends on)
     intra_calls = {}
     for name in INTRA_STREAMS:
         sdata = (DATA / name).read_bytes()
@@ -1895,16 +2167,15 @@ def main() -> int:
                 if k.startswith("pass2.intra")}
             if not di:
                 continue
-            intra_calls[name] = [(tag, args) for tag, _, args, _ in ssink
-                                 if tag in INTRA_KERNELS]
-            # the levels of each device frame, again, back to back
-            rep["levels_back_to_back"] = []
+            intra_calls[name] = [args for tag, _, args, _ in ssink
+                                 if tag == "ipred_walk"]
+            rep["walks_back_to_back"] = []
             for fr in log.intra:
                 a, b = fr["captured"]
                 cap = [c for c in scap[a:b] if c[0] in INTRA_KERNELS]
                 if cap:
                     ms, host_ms = replay_ms(cap)
-                    rep["levels_back_to_back"].append(
+                    rep["walks_back_to_back"].append(
                         {"launches": len(cap), "ms": ms,
                          "host_queue_ms": host_ms})
             del scap
@@ -1915,17 +2186,24 @@ def main() -> int:
               f"; levels {rep['counts'].get('intra_levels', 0)}, units "
               f"{ {k: rep['counts'].get(f'intra_{k}_units', 0) for k in ('pred', 'cfl', 'pal')} }"
               f", host-walk frames {rep['host_walk_frames']}; each "
-              f"frame's level launches again back to back (device ms, "
-              f"launches, host ms to queue them): "
-              f"{[(round(r['ms'], 3), r['launches'], round(r['host_queue_ms'], 1)) for r in rep['levels_back_to_back']]}",
+              f"frame's walks again back to back (device ms, launches, "
+              f"host ms to queue them): "
+              f"{[(round(r['ms'], 4), r['launches'], round(r['host_queue_ms'], 2)) for r in rep['walks_back_to_back']]}",
               flush=True)
 
-    # the least device time per frame of K9-K12 on their decodes' calls
+    # the least device time per frame of K9, the walk, and K10-K12 (their
+    # kind's units of the walks) on their decodes' calls
     path_bound = {"fg": sum(bound("fg", a)[0] for a in fg_calls) / gn}
-    for k in INTRA_KERNELS:
-        stream = PATH_OF[k][0]
-        path_bound[k] = sum(bound(k, a)[0] for t, a in intra_calls[stream]
-                            if t == k) / intra_report[stream]["frames"]
+    path_bound["ipred_walk"] = sum(
+        bound("ipred_walk", a)[0] for a in intra_calls[MAIN_STREAM]) \
+        / intra_report[MAIN_STREAM]["frames"]
+    for k in LEVEL_KERNELS:
+        stream = LEVEL_STREAM[k]
+        nbytes = sum(_units_work(KIND_OF[k], a[3][(a[4] & 3) == KIND_OF[k]],
+                                 a[8], a[9])[0]
+                     for a in intra_calls[stream])
+        path_bound[k] = nbytes / HBM_BYTES_PER_S * 1e3 \
+            / intra_report[stream]["frames"]
     print(f"  bound per frame on their decodes' calls (ms): "
           f"{ {k: round(v, 6) for k, v in path_bound.items()} }",
           flush=True)
@@ -1937,16 +2215,37 @@ def main() -> int:
     plains = {"ipred": (oip.pred_level, oip.pred_level_plain),
               "ipred_cfl": (oip.cfl_level, oip.cfl_level_plain),
               "ipred_pal": (oip.pal_level, oip.pal_level_plain)}
-    for k in INTRA_KERNELS:
-        stream = PATH_OF[k][0]
-        calls = [a for t, a in intra_calls[stream] if t == k]
-        _require(calls, f"the traced {stream} decode made no {k} call")
-        j = 3 if k == "ipred_cfl" else 2
-        big = max(calls, key=lambda a: a[j].shape[0])
-        # in place on the decode's own canvas (timing only: phase 3 and
-        # the md5s hold the results)
-        timed[k] = (f"{stream} level of {big[j].shape[0]} units (largest "
-                    f"of {len(calls)})", *plains[k], big)
+    for k in LEVEL_KERNELS:
+        # the largest level of the kind in the stream's walks, on a copy
+        # of its walk's input canvas (timing only: phase 3 and the key
+        # frame hold the results)
+        stream, unit_kind, best = LEVEL_STREAM[k], KIND_OF[k], (0, None, 0, 0)
+        for fr in walk_logs[stream]:
+            for w in fr["walks"]:
+                T = w["args"][4].cpu().numpy()
+                ends = np.cumsum(w["args"][5].cpu().numpy())
+                for a, b in zip(np.concatenate([[0], ends[:-1]]), ends):
+                    sel = np.flatnonzero((T[a:b] & 3) == unit_kind)
+                    if len(sel) > best[0]:
+                        best = (len(sel), w, a + int(sel[0]),
+                                a + int(sel[-1]) + 1)
+        n, w, a, b = best
+        _require(n > 0, f"the {stream} walks hold no {k} units")
+        canvas, luma, resid, jobs, _, _, pidx, ph, ssh, ssv, bd = w["args"]
+        J = jobs[a:b]
+        args = {0: (canvas.clone(), resid, J, ph, bd),
+                1: (canvas.clone(), luma, resid, J, ph, ssh, ssv, bd),
+                2: (canvas.clone(), resid, J, pidx, bd)}[unit_kind]
+        timed[k] = (f"{stream} level of {n} units (largest)", *plains[k],
+                    args)
+    # the walk: the main key frame's luma chain
+    wl = next(w for w in key["walks"] if w["chain"] == 0)
+    wkey = next(r for r in key_walks if r["chain"] == 0)
+    wargs = (wl["args"][0].clone(),) + wl["args"][1:]
+    timed["ipred_walk"] = (
+        f"{MAIN_STREAM} key frame luma walk ({wkey['levels']} levels, "
+        f"{wkey['units']} units)", functools.partial(oip.walk, **wl["kw"]),
+        oip.walk_plain, wargs)
     name, big = max(lr_calls["resize"], key=lambda c: c[1][0].numel())
     timed["resize"] = (f"{name} luma call {tuple(big[0].shape)}",
                        oresize.resize_plane, oresize.resize_plane_plain, big)
@@ -1973,7 +2272,26 @@ def main() -> int:
     timed["cdef_filter"] = (
         f"1080p luma call of the decode {tuple(big[0].shape)}",
         ocdef.filter_plane, ocdef.filter_plane_plain, big)
-    times = time_kernels(timed)
+    times = time_kernels({k: v for k, v in timed.items()
+                          if k != "ipred_walk"})
+    # the walk's plain version runs the key frame's levels one by one:
+    # timed once, from the walk's input canvas, and it must equal the walk
+    label, wkfn, _, wargs = timed["ipred_walk"]
+    c = wl["args"][0].clone()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    e0.record()
+    oip.walk_plain(c, *wl["args"][1:])
+    e1.record()
+    torch.cuda.synchronize()
+    errs["ipred_walk"] = max(errs["ipred_walk"], _max_abs_err(c, wl["out"]))
+    _require(errs["ipred_walk"] == 0, "ipred_walk disagrees with its plain "
+             f"version on the {MAIN_STREAM} key frame")
+    print(f"  ipred_walk {label}: walk_plain equal to the walk "
+          f"(max_abs_err 0)", flush=True)
+    times["ipred_walk"] = (min(cuda_ms(lambda: wkfn(*wargs))
+                               for _ in range(2)), e0.elapsed_time(e1),
+                           label)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         ms, plain_ms, label = times[name]
@@ -1989,7 +2307,17 @@ def main() -> int:
                         "max_abs_err": errs[name], "ms": ms,
                         "launch_ms": l_ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "share": bound_ms / l_ms, "library_ms": None})
+                        "share": bound_ms / l_ms, "library_ms": None,
+                        "on_path": name not in LEVEL_KERNELS})
+        if name == "ipred_walk":
+            # levels x one handoff plus the smallest unit: what a chain of
+            # dependent levels cannot beat
+            kernels[-1]["latency_floor_ms"] = wkey["levels"] * floor["pal"]
+            print(f"  {name:12s} latency floor {wkey['levels']} levels x "
+                  f"{floor['pal'] * 1e3:.3f} us = "
+                  f"{kernels[-1]['latency_floor_ms']:.4f} ms, share "
+                  f"{kernels[-1]['latency_floor_ms'] / l_ms:.3f}",
+                  flush=True)
     # the second itx call
     label, kfn, pfn, args = timed_inter
     ms, plain_ms, _ = time_kernels({"itx": timed_inter})["itx"]
@@ -2013,10 +2341,12 @@ def main() -> int:
                       "itx_calls": itx_stats, "itx_occupancy": occ,
                       "restoration_streams": lr_report,
                       "grain": grain_report,
-                      "bound_ms_per_frame_k9_k12": path_bound,
+                      "bound_ms_per_frame_k9_walk": path_bound,
                       "device_intra": {
                           k: {kk: vv for kk, vv in v.items()}
                           for k, v in intra_report.items()},
+                      "key_frame_walks": key_walks,
+                      "walk_floor_ms_per_level": floor,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

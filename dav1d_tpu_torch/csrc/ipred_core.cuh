@@ -43,6 +43,18 @@
 // 0), output (dc + sign(alpha ac) round(|alpha ac| / 64) with the mean
 // removed).  Palette units: output only.
 //
+// The walk (csrc/ipred.cu ipred_walk) runs every unit of a chain in one
+// launch: each unit carries a tag, level << 2 | kind (PRED, CFL, PAL),
+// the levels numbered 0, 1, ... in order; a unit of level L > 0 starts
+// once done[L - 1] == counts[L - 1] (level_ready), and its CTA adds one
+// to done[L] after its last phase (level_finish).  stage_unit copies the
+// unit's residual window and index map into shared memory while it
+// waits; unit_phases / unit_phase give the phases after load of a unit of
+// either kind, so the kernel and a host build run the same dispatch.
+// Canvas reads go through IP_LDCG (L2, never the SM's L1, which another
+// SM's writes do not invalidate); job rows, residuals and the luma
+// canvas of an earlier launch are read-only and keep IP_LDG.
+//
 // Exactness: every intermediate fits int32 at 12-bit: edge filter sums
 // <= 16 * 4095, SMOOTH sums <= 512 * 4095, angular blends <= 64 * 4095,
 // filter-intra sums <= 7 * 127 * 4095, the CFL AC <= 32760 a pixel and
@@ -57,11 +69,13 @@
 #define IP_FN __device__ inline
 #define IP_CONST __constant__
 #define IP_LDG(p) __ldg(p)
+#define IP_LDCG(p) __ldcg(p)
 #define IP_ATOMIC_ADD(p, v) atomicAdd(p, v)
 #else
 #define IP_FN inline
 #define IP_CONST
 #define IP_LDG(p) (*(p))
+#define IP_LDCG(p) (*(p))
 #define IP_ATOMIC_ADD(p, v) (*(p) += (v))
 #endif
 
@@ -146,6 +160,12 @@ struct Shared {
         int ac[1024];     // CFL AC
     };
     int dc, sum;
+    signed char taps[64];  // FILTER: the unit's filter set
+    // the walk's staged inputs (stage_unit), null in the per-level
+    // kernels: the residual window (w per row) and a palette unit's
+    // index map
+    const int* res;
+    const unsigned char* idx;
 };
 
 IP_FN int clampi(int v, int lo, int hi) {
@@ -164,13 +184,17 @@ IP_FN int ulog2(int v) {
 IP_FN void load(Shared& s, const int* job, int tid, int nt) {
     int* u = &s.u.dy;
     for (int i = tid; i < JOB_COLS; i += nt) u[i] = IP_LDG(job + i);
-    if (tid == 0) s.sum = 0;
+    if (tid == 0) {
+        s.sum = 0;
+        s.res = nullptr;
+        s.idx = nullptr;
+    }
 }
 
 IP_FN int rd(const Plane& p, const Unit& u, int r, int c) {
     const int lo = u.dy >= p.ph ? p.ph : 0;
-    return p.canvas[(long long)clampi(r, lo, lo + p.ph - 1) * p.W +
-                    clampi(c, 0, p.W - 1)];
+    return IP_LDCG(p.canvas + (long long)clampi(r, lo, lo + p.ph - 1) * p.W +
+                   clampi(c, 0, p.W - 1));
 }
 
 // edge[k] of unit u, without Z2's top-left filter
@@ -408,6 +432,8 @@ IP_FN void prep(Shared& s, int bd, int tid, int nt) {
             s.vec[k] = v;
         }
     } else if (u.mode == FILTER) {
+        const signed char* f = FILTER_TAPS[clampi(u.akey & 511, 0, 4)];
+        for (int i = tid; i < 64; i += nt) s.taps[i] = f[i];
         for (int i = tid; i <= w; i += nt) s.fc[i] = e[OFS + i];
         for (int i = tid; i < h; i += nt) s.fc[(1 + i) * FC] = e[OFS - 1 - i];
     } else if (tid == 0 && (u.mode == DC || u.mode == TOP_DC ||
@@ -420,7 +446,9 @@ IP_FN void prep(Shared& s, int bd, int tid, int nt) {
 IP_FN void filter_step(Shared& s, int bd, int st, int tid, int nt) {
     const Unit& u = s.u;
     const int nbx = u.w >> 2, nby = u.h >> 1;
-    const signed char* f = FILTER_TAPS[clampi(u.akey & 511, 0, 4)];
+    // the set's taps from shared memory: lanes reading different taps of
+    // the constant bank would serialise
+    const signed char* f = s.taps;
     const int bx_lo = maxi(0, st - (nby - 1)), bx_hi = mini(nbx - 1, st);
     const int n = (bx_hi - bx_lo + 1) * 8;
     for (int t = tid; t < n; t += nt) {
@@ -508,9 +536,13 @@ IP_FN int predict(const Shared& s, const Ang& a, int x, int y) {
     }
 }
 
-IP_FN void write(const Plane& p, const Unit& u, int x, int y, int pred) {
+// pred plus the residual (staged `res`, w per row, or the plane's),
+// clipped, into the canvas
+IP_FN void write(const Plane& p, const Unit& u, const int* res, int x, int y,
+                 int pred) {
     const long long o = (long long)(u.dy + y) * p.W + u.dx + x;
-    p.canvas[o] = clampi(pred + IP_LDG(p.resid + o), 0, (1 << p.bd) - 1);
+    const int r = res ? res[y * u.w + x] : IP_LDG(p.resid + o);
+    p.canvas[o] = clampi(pred + r, 0, (1 << p.bd) - 1);
 }
 
 IP_FN void output(const Shared& s, const Plane& p, int tid, int nt) {
@@ -518,7 +550,7 @@ IP_FN void output(const Shared& s, const Plane& p, int tid, int nt) {
     const Ang a = angular(u);
     for (int i = tid; i < u.w * u.h; i += nt) {
         const int y = i / u.w, x = i % u.w;
-        write(p, u, x, y, predict(s, a, x, y));
+        write(p, u, s.res, x, y, predict(s, a, x, y));
     }
 }
 
@@ -561,24 +593,130 @@ IP_FN void cfl_output(const Shared& s, const Plane& p, int tid, int nt) {
         const int adj = ((diff < 0 ? -diff : diff) + 32) >> 6;
         const int pred = clampi(s.dc + (diff < 0 ? -adj : diff > 0 ? adj : 0),
                                 0, maxp);
-        write(p, u, i % u.w, i / u.w, pred);
+        write(p, u, s.res, i % u.w, i / u.w, pred);
     }
 }
 
 // ---- palette -------------------------------------------------------------
 
-// the palette unit of job row `job`: colour job[8 + idx] of each pixel's
-// index (its map at job[4] in pidx)
-IP_FN void pal_output(const int* job, const Plane& p, const unsigned char* pidx,
-                      int tid, int nt) {
+// the palette unit of job row `job` (global, or its shared copy): colour
+// job[8 + idx] of each pixel's index in its map `idx`; `res` its staged
+// residuals or null
+IP_FN void pal_output(const int* job, const Plane& p, const unsigned char* idx,
+                      const int* res, int tid, int nt) {
     Unit u;
-    u.dy = IP_LDG(job + 0);
-    u.dx = IP_LDG(job + 1);
-    const int w = IP_LDG(job + 2), h = IP_LDG(job + 3);
-    const long long off = (unsigned)IP_LDG(job + 4);
-    for (int i = tid; i < w * h; i += nt) {
-        const int c = IP_LDG(job + 8 + (pidx[off + i] & 7));
-        write(p, u, i % w, i / w, c);
+    u.dy = job[0];
+    u.dx = job[1];
+    u.w = job[2];
+    const int h = job[3];
+    for (int i = tid; i < u.w * h; i += nt) {
+        const int c = job[8 + (idx[i] & 7)];
+        write(p, u, res, i % u.w, i / u.w, c);
+    }
+}
+
+// ---- the walk ------------------------------------------------------------
+
+constexpr int PRED = 0, CFL = 1, PAL = 2;
+
+IP_FN int tag_level(int tag) { return tag >> 2; }
+IP_FN int tag_kind(int tag) { return tag & 3; }
+
+// What a walk launch reads besides its Plane: the chain's job rows and
+// tags sorted by tag, the units of each level, the per-level done
+// counters (zeroed before the launch), the finished luma canvas (CFL
+// units) and the index maps (palette units).
+struct Walk {
+    const int* jobs;
+    const int* tags;
+    const int* counts;
+    int* done;
+    int n;
+    const int* luma;
+    int YH, YW, ss_hor, ss_ver;
+    const unsigned char* pidx;
+};
+
+#ifdef __CUDACC__
+// the acquire / release pair of CUTLASS's arch/barrier.h at device scope
+IP_FN int load_acquire(const int* p) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+                 : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+IP_FN void release_add(int* p) {
+    asm volatile("fence.acq_rel.gpu;\n\tred.relaxed.gpu.global.add.s32 "
+                 "[%0], %1;" :: "l"(p), "r"(1) : "memory");
+}
+#else
+inline int load_acquire(const int* p) { return *p; }
+inline void release_add(int* p) { ++*p; }
+#endif
+
+// whether every unit below `level` has finished (each level's units
+// started after the level below it had finished, so level - 1 suffices)
+IP_FN bool level_ready(const Walk& w, int level) {
+    return level == 0 ||
+           load_acquire(w.done + level - 1) == IP_LDG(w.counts + level - 1);
+}
+
+IP_FN void level_finish(const Walk& w, int level) {
+    release_add(w.done + level);
+}
+
+// The walk's staging of a loaded unit, before its level is ready: its
+// residual window (read-only during a walk) and a palette unit's index
+// map into shared memory, so that its output phase does not go to L2 for
+// them after the handoff (the acquire that ends the wait invalidates the
+// SM's L1).
+struct Stage {
+    int res[64 * 64];
+    unsigned char idx[64 * 64];
+};
+
+IP_FN void stage_unit(Shared& s, Stage& st, const Plane& p, const Walk& w,
+                      const int* job, int kind, int tid, int nt) {
+    const int dy = IP_LDG(job), dx = IP_LDG(job + 1), uw = IP_LDG(job + 2),
+              uh = IP_LDG(job + 3);
+    for (int i = tid; i < uw * uh; i += nt)
+        st.res[i] = IP_LDG(p.resid + (long long)(dy + i / uw) * p.W + dx +
+                           i % uw);
+    if (kind == PAL) {
+        const unsigned char* m = w.pidx + (unsigned)IP_LDG(job + 4);
+        for (int i = tid; i < uw * uh; i += nt) st.idx[i] = IP_LDG(m + i);
+    }
+    if (tid == 0) {
+        s.res = st.res;
+        s.idx = st.idx;
+    }
+}
+
+// phases of a loaded unit after load: pred gather, prep, the filter
+// steps, output; CFL gather, AC, output; palette output
+IP_FN int unit_phases(const Shared& s, int kind) {
+    return kind == PAL ? 1 : kind == CFL ? 3 : 3 + filter_steps(s.u);
+}
+
+// phase k of a unit of kind `kind`, its row loaded and its inputs staged
+// into s
+IP_FN void unit_phase(Shared& s, const Plane& p, const Walk& w, int kind,
+                      int k, int tid, int nt) {
+    if (kind == PAL) {
+        pal_output(&s.u.dy, p, s.idx, s.res, tid, nt);
+    } else if (k == 0) {
+        gather(s, p, kind == PRED, tid, nt);
+    } else if (kind == CFL) {
+        if (k == 1)
+            cfl_ac(s, p, w.luma, w.YH, w.YW, w.ss_hor, w.ss_ver, tid, nt);
+        else
+            cfl_output(s, p, tid, nt);
+    } else if (k == 1) {
+        prep(s, p.bd, tid, nt);
+    } else if (k < 2 + filter_steps(s.u)) {
+        filter_step(s, p.bd, k - 2, tid, nt);
+    } else {
+        output(s, p, tid, nt);
     }
 }
 

@@ -26,8 +26,9 @@ kernel launch through :func:`launch`, every upload through
   (recon/device_intra.py), ``intra_levels`` (the wavefront levels of
   its schedules), ``intra_{pred,cfl,pal}_units`` (the units of each
   kind), ``intra_{pred,cfl,pal}_levels`` (the levels holding units of
-  each kind: one launch each) and ``intra_host_frames`` (the frames it
-  handed to the host walk).
+  each kind), ``intra_walk_launches`` (its walk launches: one per chain
+  holding units) and ``intra_host_frames`` (the frames it handed to the
+  host walk).
 """
 
 from __future__ import annotations

@@ -139,6 +139,10 @@ _SIGNATURES = {
                        _P],
     # canvas, resid, H, W, jobs, n_jobs, pidx, bitdepth, stream
     "dtpu_ipred_pal": [_P, _P, _I, _I, _P, _I, _P, _I, _P],
+    # canvas, luma, resid, H, W, ph, YH, YW, jobs, tags, counts, sync,
+    # n_jobs, n_levels, max_ctas, pidx, ss_hor, ss_ver, bitdepth, stream
+    "dtpu_ipred_walk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                        _I, _I, _P, _I, _I, _I, _P],
 }
 
 

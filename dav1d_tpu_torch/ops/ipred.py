@@ -3,10 +3,14 @@ dav1d_tpu/ops/ipred.py and of the unit programs of
 dav1d_tpu/recon/device_intra.py: _unit_program :230, _multi_run_program
 :260, _cfl_program :320, _pal_program :406).
 
-One wavefront level of a plane's prediction units runs in one launch of
-``csrc/ipred.cu`` per kind, in place on the plane's resident int32
-canvas (luma, or the two chroma planes stacked vertically, ``ph_unit``
-rows each):
+Every wavefront level of a chain (luma, or the two chroma planes
+stacked vertically, ``ph_unit`` rows each) runs in one launch of
+``csrc/ipred.cu``, in place on the chain's resident int32 canvas:
+:func:`walk` (kernel ``ipred_walk``) takes the chain's job rows sorted by
+level and kind, a tag per unit (``level << 2 | kind``, the levels
+numbered from 0) and the units of each level (:func:`check_walk`), and
+its CTAs hand each level to the next through L2.  One level of one kind
+also runs alone (the per-level kernels, the walk's arithmetic):
 
 * :func:`pred_level` (kernel ``ipred``): per unit, the 257-entry edge
   vector gathered from the canvas (:func:`edges_plain`: the clamped-index
@@ -62,6 +66,8 @@ J_Y0, J_X0, J_ALPHA, J_WPAD, J_HPAD = 10, 11, 12, 13, 15
 # palette units: offset of the (h, w) index map in the index buffer, and
 # the 8 palette colours
 J_IDX, J_PAL = 4, 8
+# walk tags: level << 2 | kind (csrc/ipred_core.cuh PRED, CFL, PAL)
+KIND_PRED, KIND_CFL, KIND_PAL = 0, 1, 2
 
 
 # ---- static plans (dav1d_tpu/ops/ipred.py:46-83) -------------------------
@@ -536,6 +542,59 @@ def pal_level_plain(canvas, resid, jobs, pidx, bitdepth):
     return _finish(canvas, resid, J, preds, bitdepth)
 
 
+def walk_plain(canvas, luma, resid, jobs, tags, counts, pidx, ph_unit,
+               ss_hor, ss_ver, bitdepth):
+    """The plain version of :func:`walk`: level after level, each kind's
+    units through its level step."""
+    T = tags.cpu().numpy().astype(np.int64)
+    ends = np.cumsum(counts.cpu().numpy().astype(np.int64))
+    for e0, e1 in zip(np.concatenate([[0], ends[:-1]]), ends):
+        kinds = T[e0:e1] & 3
+        for kind in (KIND_PRED, KIND_CFL, KIND_PAL):
+            sel = np.flatnonzero(kinds == kind)
+            if not len(sel):
+                continue
+            J = jobs[e0 + int(sel[0]):e0 + int(sel[-1]) + 1]
+            if kind == KIND_PRED:
+                pred_level_plain(canvas, resid, J, ph_unit, bitdepth)
+            elif kind == KIND_CFL:
+                cfl_level_plain(canvas, luma, resid, J, ph_unit, ss_hor,
+                                ss_ver, bitdepth)
+            else:
+                pal_level_plain(canvas, resid, J, pidx, bitdepth)
+    return canvas
+
+
+def check_walk(tags, counts, n) -> None:
+    """Raise unless ``tags`` and ``counts`` are a walk table for ``n`` job
+    rows: one tag each, kinds in 0..2, sorted by level and then kind,
+    levels 0 .. len(counts) - 1 each holding its count (at least one)
+    of the rows.  The kernel would wait forever on a level that never
+    fills (and traps)."""
+    t = np.asarray(tags, dtype=np.int64).reshape(-1)
+    c = np.asarray(counts, dtype=np.int64).reshape(-1)
+    if len(t) != n:
+        raise ValueError(f"tags: {len(t)} tags for {n} jobs")
+    if len(t) and (t.min() < 0 or (t & 3).max() > KIND_PAL):
+        raise ValueError("tags: a kind outside 0..2")
+    if (np.diff(t) < 0).any():
+        raise ValueError("tags: not sorted by level, then kind")
+    if c.sum() != n or (c < 1).any():
+        raise ValueError(f"counts: {c.tolist()[:8]}... do not give each "
+                         f"level a unit and sum to {n}")
+    if not np.array_equal(np.repeat(np.arange(len(c)), c), t >> 2):
+        raise ValueError("counts: the levels of the tags differ")
+
+
+def walk_ctas(counts) -> int:
+    """The most units that two consecutive levels of ``counts`` hold: the
+    walk's CTAs beyond them would only wait."""
+    c = np.asarray(counts, dtype=np.int64).reshape(-1)
+    if len(c) < 2:
+        return int(c.sum())
+    return int((c[1:] + c[:-1]).max())
+
+
 # ---- wrappers -------------------------------------------------------------
 
 def _check(canvas, resid, jobs, bitdepth):
@@ -612,4 +671,52 @@ def pal_level(canvas: torch.Tensor, resid: torch.Tensor, jobs: torch.Tensor,
                          jobs.shape[0], pidx.data_ptr(), int(bitdepth),
                          build.stream(canvas),
                          keep=(canvas, resid, jobs, pidx))
+    return canvas
+
+
+def walk(canvas: torch.Tensor, luma, resid: torch.Tensor,
+         jobs: torch.Tensor, tags: torch.Tensor, counts: torch.Tensor,
+         pidx, ph_unit: int, ss_hor: int, ss_ver: int, bitdepth: int,
+         max_ctas: int = 0) -> torch.Tensor:
+    """Every unit of one chain, ``jobs`` ((n, JOB_COLS) int32) with their
+    int32 ``tags`` (level << 2 | kind, sorted) and the int32 ``counts`` of
+    units a level, in place on the (H, W) int32 ``canvas``, level after
+    level; ``luma``: the finished int32 luma canvas (CFL units; None on
+    the luma chain), ``pidx``: the uint8 index maps (palette units, else
+    None); returns ``canvas``.  CPU tensors run :func:`walk_plain` after
+    :func:`check_walk`; CUDA tensors launch ``csrc/ipred.cu`` once, with
+    at most ``max_ctas`` CTAs (0: the resident ones; see
+    :func:`walk_ctas`) and the table checked by the caller."""
+    _check(canvas, resid, jobs, bitdepth)
+    luma = canvas if luma is None else luma
+    build.check(luma, "luma")
+    build.check(tags, "tags", (jobs.shape[0],))
+    build.check(counts, "counts")
+    if counts.dim() != 1:
+        raise ValueError(f"counts: shape {tuple(counts.shape)}, expected "
+                         "1-D")
+    extra = ()
+    if pidx is not None:
+        build.check(pidx, "pidx", dtype=torch.uint8)
+        extra = (pidx,)
+    if not build.on_cuda(canvas, luma, resid, jobs, tags, counts, *extra):
+        check_walk(tags.numpy(), counts.numpy(), jobs.shape[0])
+        return walk_plain(canvas, luma, resid, jobs, tags, counts, pidx,
+                          ph_unit, ss_hor, ss_ver, bitdepth)
+    if jobs.shape[0]:
+        sync = torch.empty(counts.shape[0] + 1, dtype=torch.int32,
+                           device=canvas.device)
+        with torch.cuda.device(canvas.device):
+            devrt.launch("ipred_walk", build.lib().dtpu_ipred_walk,
+                         canvas.data_ptr(), luma.data_ptr(),
+                         resid.data_ptr(), canvas.shape[0], canvas.shape[1],
+                         ph_unit, luma.shape[0], luma.shape[1],
+                         jobs.data_ptr(), tags.data_ptr(),
+                         counts.data_ptr(), sync.data_ptr(), jobs.shape[0],
+                         counts.shape[0], int(max_ctas),
+                         pidx.data_ptr() if pidx is not None else None,
+                         int(ss_hor), int(ss_ver), int(bitdepth),
+                         build.stream(canvas),
+                         keep=(canvas, luma, resid, jobs, tags, counts,
+                               pidx, sync))
     return canvas

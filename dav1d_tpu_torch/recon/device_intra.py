@@ -16,17 +16,20 @@ pixels stay on the device and the order becomes a schedule of levels:
 2. device (:func:`intra_frame_device`): the planes after phase A (inter
    blocks final) go up once, luma and the two chroma planes stacked
    vertically; the residual canvases are scattered on the device from
-   the itx kernel's output, which never came up from the host; for each
-   level in order, one launch per kind present (ops/ipred.py: pred,
-   cfl, palette kernels of csrc/ipred.cu) reconstructs its units in
-   place; the luma chain runs before the chroma one (CFL reads finished
-   luma); the planes come down once, narrow.
+   the itx kernel's output, which never came up from the host; each
+   chain's walk table (:func:`_job_table`: job rows sorted by level and
+   kind, a tag each, the units of each level) goes up in the same copy;
+   one launch per chain holding units (ops/ipred.walk, kernel
+   ``ipred_walk`` of csrc/ipred.cu) reconstructs every level in order,
+   in place; the luma chain runs before the chroma one (CFL reads
+   finished luma); the planes come down once, narrow.
 
-The reference's launch-fusion plan (KMAX/GMAX, its multi-level XLA
-programs) and its sink shim (_chain_call) served XLA's program cache and
-launch cost; they are not ported.  Its sticky fallback to the host walk
-on a device error is not ported either: a failing launch raises out of
-the decode.
+The reference fused up to 64 levels into one XLA program
+(_multi_run_program, planned by KMAX/GMAX) for XLA's program cache and
+launch cost; the walk is its Hopper form and takes every level of a
+chain.  The reference's sink shim (_chain_call) is not ported, nor its
+sticky fallback to the host walk on a device error: a failing launch
+raises out of the decode.
 
 Coverage: a frame with intrabc blocks (they copy from the in-progress
 canvas in decode order), with interintra blocks (phase A leaves them to
@@ -38,6 +41,8 @@ frame has no unit and makes no launch.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -424,23 +429,37 @@ def _residual_canvases(f, st, shapes, hc):
 
 
 def _job_table(levels):
-    """One chain's job rows in launch order, (int32 (n, JOB_COLS), [(level,
-    kind, start, count)])."""
-    rows, plan = [], []
-    for level in sorted(levels):
-        for kind in KINDS:
+    """One chain's walk table (ops/ipred.walk): int32 (n, JOB_COLS) job
+    rows sorted by level and then kind, their int32 tags (the level's
+    index << 2 | kind) and the int32 units of each level, checked."""
+    groups, counts = [], []
+    for i, level in enumerate(sorted(levels)):
+        n = 0
+        for k, kind in enumerate(KINDS):
             units = levels[level].get(kind)
             if units:
-                plan.append((level, kind, len(rows), len(units)))
-                rows += units
-    return np.asarray(rows, np.int32).reshape(-1, oip.JOB_COLS), plan
+                groups.append((i << 2 | k, units))
+                n += len(units)
+        counts.append(n)
+    n = sum(counts)
+    J = np.fromiter(itertools.chain.from_iterable(
+        itertools.chain.from_iterable(u for _, u in groups)), np.int32,
+        count=n * oip.JOB_COLS).reshape(n, oip.JOB_COLS)
+    tags = np.repeat(np.asarray([t for t, _ in groups], np.int32),
+                     [len(u) for _, u in groups])
+    counts = np.asarray(counts, np.int32)
+    oip.check_walk(tags, counts, n)
+    return J, tags, counts
 
 
 def intra_frame_device(f, st) -> bool:
-    """Phase B on ``f.device``: every intra unit of the frame, level by
-    level, one launch per kind present in a level.  Returns False (the
-    caller runs the host walk) when the frame has blocks this path does
-    not cover."""
+    """Phase B on ``f.device``: every intra unit of the frame, one walk
+    launch per chain holding units.  Returns False (the caller runs the
+    host walk) when the frame has blocks this path does not cover.
+    Spans: ``pass2.intra.schedule`` (the unit walk), ``.device`` (the
+    rest), within it ``.table`` (the walk tables), ``.upload`` (planes,
+    residual canvases, tables, index maps), ``.walk`` (the launches) and
+    ``.download`` (which waits for the walks)."""
     glue = f._nat
     with devrt.span("pass2.intra.schedule"):
         sched, _ = _enumerate_units(f, glue, glue.block_ranges())
@@ -450,41 +469,53 @@ def intra_frame_device(f, st) -> bool:
         return True  # all-inter: phase A reconstructed every block
     dev, bd = f.device, f.bitdepth
     with devrt.span("pass2.intra.device"):
-        tabs = [_job_table(levels) for levels in sched]
-        planes = state.upload_planes(f.planes, bd, dev)
-        hc = f.planes[1].shape[0] if len(planes) == 3 else 0
-        canv = [planes[0]] + ([torch.cat(planes[1:])] if hc else [])
-        resid = _residual_canvases(f, st, [c.shape for c in canv], hc)
-        pidx = None
-        pal = [J[s:s + n] for J, plan in tabs for _, kind, s, n in plan
-               if kind == "pal"]
-        if pal:  # the index maps, up to the end of the last one
-            P = np.concatenate(pal)
-            end = int((P[:, oip.J_IDX] + P[:, oip.J_W] * P[:, oip.J_H]).max())
-            pidx = devrt.upload(glue.pal_arena[:end], dev)
-        jobs = devrt.upload(np.concatenate([J for J, _ in tabs]), dev)
-        base = 0
-        for ch, (J, plan) in enumerate(tabs):
-            ph = f.planes[ch].shape[0]
-            for _, kind, s, n in plan:
-                jt = jobs[base + s:base + s + n]
-                if kind == "pred":
-                    devrt.call("ipred", oip.pred_level, canv[ch], resid[ch],
-                               jt, ph, bd)
-                elif kind == "cfl":
-                    devrt.call("ipred_cfl", oip.cfl_level, canv[ch], canv[0],
-                               resid[ch], jt, ph, f.ss_hor, f.ss_ver, bd)
-                else:
-                    devrt.call("ipred_pal", oip.pal_level, canv[ch],
-                               resid[ch], jt, pidx, bd)
-                devrt.COUNTS[f"intra_{kind}_units"] += n
-                devrt.COUNTS[f"intra_{kind}_levels"] += 1
-            devrt.COUNTS["intra_levels"] += len(sched[ch])
-            base += len(J)
-        cast = devrt.narrow_cast(bd)
-        f.planes[0][:] = devrt.fetch(cast(canv[0]))
-        if hc:
-            uv = devrt.fetch(cast(canv[1]))
-            f.planes[1][:] = uv[:hc]
-            f.planes[2][:] = uv[hc:]
+        with devrt.span("pass2.intra.table"):
+            tabs = [_job_table(levels) for levels in sched]
+        with devrt.span("pass2.intra.upload"):
+            planes = state.upload_planes(f.planes, bd, dev)
+            hc = f.planes[1].shape[0] if len(planes) == 3 else 0
+            canv = [planes[0]] + ([torch.cat(planes[1:])] if hc else [])
+            resid = _residual_canvases(f, st, [c.shape for c in canv], hc)
+            pidx = None
+            pal = [J[(tags & 3) == oip.KIND_PAL] for J, tags, _ in tabs]
+            if any(len(P) for P in pal):  # the index maps, to the last end
+                P = np.concatenate(pal)
+                end = int((P[:, oip.J_IDX]
+                           + P[:, oip.J_W] * P[:, oip.J_H]).max())
+                pidx = devrt.upload(glue.pal_arena[:end], dev)
+            # the chains' job rows, tags and level counts in one copy
+            flat = devrt.upload(np.concatenate(
+                [J.reshape(-1) for J, _, _ in tabs]
+                + [a for _, t, c in tabs for a in (t, c)]), dev)
+        with devrt.span("pass2.intra.walk"):
+            o = sum(J.size for J, _, _ in tabs)
+            j0 = 0
+            for ch, (J, tags, counts) in enumerate(tabs):
+                jt = flat[j0:j0 + J.size].view(-1, oip.JOB_COLS)
+                tt = flat[o:o + len(tags)]
+                ct = flat[o + len(tags):o + len(tags) + len(counts)]
+                j0 += J.size
+                o += len(tags) + len(counts)
+                if not len(J):
+                    continue
+                devrt.call("ipred_walk", oip.walk, canv[ch], canv[0],
+                           resid[ch], jt, tt, ct, pidx,
+                           f.planes[ch].shape[0], f.ss_hor, f.ss_ver, bd,
+                           max_ctas=oip.walk_ctas(counts))
+                devrt.COUNTS["intra_walk_launches"] += 1
+                devrt.COUNTS["intra_levels"] += len(counts)
+                pairs = np.unique(tags) & 3  # each (level, kind) once
+                for k, kind in enumerate(KINDS):
+                    if (pairs == k).any():
+                        devrt.COUNTS[f"intra_{kind}_units"] += int(
+                            ((tags & 3) == k).sum())
+                        devrt.COUNTS[f"intra_{kind}_levels"] += int(
+                            (pairs == k).sum())
+        with devrt.span("pass2.intra.download"):
+            cast = devrt.narrow_cast(bd)
+            f.planes[0][:] = devrt.fetch(cast(canv[0]))
+            if hc:
+                uv = devrt.fetch(cast(canv[1]))
+                f.planes[1][:] = uv[:hc]
+                f.planes[2][:] = uv[hc:]
     return True

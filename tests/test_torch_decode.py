@@ -30,12 +30,13 @@ versions of the kernels) against the JAX package, bit-exact.
   1080p super-res stream: 642 Wiener units, every frame upscaled, no MC
   block, since every reference is scaled; the 1080p restoration stream:
   327 Wiener and 16 self-guided units);
-* with device_intra=True (phase B on the device schedule, its plain
-  level steps on the CPU), every tests/test_device_intra.CASES stream,
-  that file's mixed-stream recipe and 4:2:2 and 12-bit key frames equal
-  the JAX host tier, and the committed 10-bit (a CFL unit) and palette
-  streams their md5s; a 10-bit film-grain stream equals the JAX host
-  tier on the port's plain grain path; a failing launch in the device
+* with device_intra=True (phase B on the device schedule, one walk per
+  chain, the plain walk on the CPU), every
+  tests/test_device_intra.CASES stream, that file's mixed-stream recipe
+  and 4:2:2 and 12-bit key frames equal the JAX host tier, and the
+  committed 10-bit (a CFL unit) and palette streams their md5s; a 10-bit
+  film-grain stream equals the JAX host tier on the port's plain grain
+  path; a failing launch in the device
   intra stage or in film grain raises out of the decode, and
   device_intra on CUDA without CUDA raises; the schedule leaves frames
   with intrabc or interintra blocks to the host walk, which counts them;
@@ -459,7 +460,7 @@ INTRA_CASES = ["angular_cfl", "hbd10", "i444_odd", "mono", "sb64",
 @pytest.mark.parametrize("name", INTRA_CASES)
 def test_device_intra_matches_jax_host(tmp_path, name):
     """The port with device_intra=True (phase B by wavefront levels, the
-    plain level steps on the CPU) on every tests/test_device_intra.CASES
+    plain walk on the CPU) on every tests/test_device_intra.CASES
     stream, on test_mixed_stream's recipe and on 4:2:2 and 12-bit key
     frames: the JAX host tier's md5, every frame on the device schedule,
     its units counted."""
@@ -480,6 +481,8 @@ def test_device_intra_matches_jax_host(tmp_path, name):
     units = sum(counts.get(f"intra_{k}_units", 0)
                 for k in ("pred", "cfl", "pal"))
     assert units > 0 and counts["intra_levels"] > 0, counts
+    # one walk per chain holding units: at most two a frame
+    assert 0 < counts["intra_walk_launches"] <= 2 * port[0], counts
     if name == "screen_palette":
         assert counts["intra_pal_units"] > 0, counts
 
@@ -542,10 +545,11 @@ def test_device_intra_failure_raises(tmp_path, monkeypatch):
     from dav1d_tpu_torch.ops import ipred
 
     def failing(*args, **kw):
-        raise RuntimeError("ipred: CUDA launch failed: 719")
+        raise RuntimeError("ipred_walk: CUDA launch failed: 719")
 
-    monkeypatch.setattr(ipred, "pred_level", failing)
-    with pytest.raises(RuntimeError, match="ipred: CUDA launch failed"):
+    monkeypatch.setattr(ipred, "walk", failing)
+    with pytest.raises(RuntimeError,
+                       match="ipred_walk: CUDA launch failed"):
         _decode_all(_intra_case(tmp_path, "angular_cfl"),
                     device_intra=True)
 

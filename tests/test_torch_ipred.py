@@ -22,7 +22,17 @@ vs the JAX package, bit-exact.
   level or later (the invariant that lets the kernels write in place);
 * the kernels' arithmetic, ``csrc/ipred_core.cuh`` built as host C++ and
   run unit by unit, thread by thread (``-k host``), against the plain
-  level steps, 12-bit extremes included.
+  level steps, 12-bit extremes included;
+* the walk (every level of a chain in one launch): its dispatch,
+  staging and level bookkeeping built as host C++ and run one ticket at
+  a time, in ticket order and permuted within each level, against
+  :func:`walk_plain` on six-level schedules mixing prediction, CFL and
+  palette units at 8/10/12-bit and on the walks of
+  tests/test_device_intra.CASES decodes; a unit taken before its level
+  is ready is caught; :func:`walk_plain` against the reference's fused
+  run of levels (dav1d_tpu/recon/device_intra._multi_run_program); the
+  wrapper refuses a table out of level order, with counts that do not
+  sum or a kind outside 0..2.
 
 Tolerance: exact (integer codec)."""
 
@@ -351,6 +361,8 @@ def test_pal_level_matches_jax():
 # ---- the kernels' arithmetic on the host ---------------------------------
 
 _HOST_SRC = r"""
+#include <vector>
+
 #include "ipred_core.cuh"
 
 // csrc/ipred.cu's kernels, unit after unit, each phase thread by thread
@@ -390,7 +402,43 @@ extern "C" void pal_host(int* canvas, const int* resid, int H, int W,
     const ip::Plane p{canvas, resid, H, W, H, bd};
     for (int j = 0; j < n; j++)
         for (int t = 0; t < nt; t++)
-            ip::pal_output(jobs + j * 16, p, pidx, t, nt);
+            ip::pal_output(jobs + j * 16, p, pidx + jobs[j * 16 + 4],
+                           nullptr, t, nt);
+}
+
+// csrc/ipred.cu's walk kernel, one ticket at a time in `order` (the
+// tickets, permuted or not), each unit's phases thread by thread with the
+// kernel's dispatch and level bookkeeping; returns 0, or 1 + the
+// position in `order` of a unit whose level was not ready (the kernel's
+// CTA would wait there), or -1 when a level's count was not reached
+extern "C" int walk_host(int* canvas, const int* luma, const int* resid,
+                         int H, int W, int ph, int YH, int YW,
+                         const int* jobs, const int* tags, const int* counts,
+                         int n, int n_levels, const int* order,
+                         const unsigned char* pidx, int ss_hor, int ss_ver,
+                         int bd, int nt) {
+    std::vector<int> done(n_levels, 0);
+    const ip::Plane p{canvas, resid, H, W, ph, bd};
+    const ip::Walk w{jobs, tags, counts, done.data(), n, luma, YH, YW,
+                     ss_hor, ss_ver, pidx};
+    static ip::Shared s;
+    static ip::Stage st;
+    for (int i = 0; i < n; i++) {
+        const int t = order[i];
+        const int level = ip::tag_level(tags[t]), kind = ip::tag_kind(tags[t]);
+        for (int th = 0; th < nt; th++) ip::load(s, jobs + t * 16, th, nt);
+        for (int th = 0; th < nt; th++)
+            ip::stage_unit(s, st, p, w, jobs + t * 16, kind, th, nt);
+        if (!ip::level_ready(w, level)) return 1 + i;
+        const int phases = ip::unit_phases(s, kind);
+        for (int k = 0; k < phases; k++)
+            for (int th = 0; th < nt; th++)
+                ip::unit_phase(s, p, w, kind, k, th, nt);
+        ip::level_finish(w, level);
+    }
+    for (int l = 0; l < n_levels; l++)
+        if (done[l] != counts[l]) return -1;
+    return 0;
 }
 
 extern "C" const unsigned char* sm_weights_host() { return ip::SM_WEIGHTS; }
@@ -420,6 +468,9 @@ def kernel_on_host(tmp_path_factory):
     lib.ipred_host.argtypes = [P, P, I, I, I, P, I, I, I]
     lib.cfl_host.argtypes = [P, P, P, I, I, I, I, I, P, I, I, I, I, I]
     lib.pal_host.argtypes = [P, P, I, I, P, I, P, I, I]
+    lib.walk_host.argtypes = [P, P, P, I, I, I, I, I, P, P, P, I, I, P, P,
+                              I, I, I, I]
+    lib.walk_host.restype = ctypes.c_int
     for f in (lib.ipred_host, lib.cfl_host, lib.pal_host):
         f.restype = None
     lib.sm_weights_host.restype = ctypes.POINTER(ctypes.c_uint8)
@@ -508,6 +559,214 @@ def test_pal_kernel_source_on_host(kernel_on_host, bitdepth):
                             J.ctypes.data, len(J), pidx.ctypes.data,
                             bitdepth, 128)
     np.testing.assert_array_equal(got, want)
+
+
+# ---- the walk ------------------------------------------------------------
+
+DC_MODES = [int(M.DC_PRED), int(M.TOP_DC_PRED), int(M.LEFT_DC_PRED),
+            int(M.DC_128_PRED)]
+
+
+def walk_schedule(rng, H, W, ph, YH, YW, n_levels, sizes, bitdepth,
+                  kinds=(tip.KIND_PRED, tip.KIND_CFL, tip.KIND_PAL)):
+    """A chain's walk table of ``n_levels`` levels on an (H, W) canvas of
+    ph-row planes: each level a :func:`level_units` layout (no unit reads
+    a cell another unit of its level writes; the layouts of successive
+    levels overlap, so a level reads what the levels below it wrote),
+    each unit of a kind drawn from ``kinds`` (CFL, up to 32x32: a DC
+    variant, an origin in the (YH, YW) luma canvas, alpha, padding;
+    palette: colours and an index map), sorted by kind within its level.
+    Returns (jobs, tags, counts, pidx)."""
+    rows, tags, counts, maps, off = [], [], [], [], 0
+    for level in range(n_levels):
+        J = level_units(rng, H, W, ph, sizes)
+        kind = rng.choice(np.asarray(kinds), len(J))
+        kind[(kind == tip.KIND_CFL)
+             & (np.maximum(J[:, tip.J_W], J[:, tip.J_H]) > 32)] = \
+            tip.KIND_PRED
+        order = np.argsort(kind, kind="stable")
+        for r, k in zip(J[order], kind[order]):
+            w, h = int(r[tip.J_W]), int(r[tip.J_H])
+            if k == tip.KIND_CFL:
+                r[tip.J_MODE] = rng.choice(DC_MODES)
+                r[tip.J_Y0] = rng.integers(0, YH)
+                r[tip.J_X0] = rng.integers(0, YW)
+                r[tip.J_ALPHA] = rng.integers(-16, 17)
+                r[tip.J_WPAD] = rng.integers(0, w // 4)
+                r[tip.J_HPAD] = rng.integers(0, h // 4)
+            elif k == tip.KIND_PAL:
+                r[tip.J_IDX] = off
+                r[tip.J_PAL:tip.J_PAL + 8] = rng.integers(0, 1 << bitdepth,
+                                                          8)
+                maps.append(rng.integers(0, 8, w * h).astype(np.uint8))
+                off += w * h
+            rows.append(r)
+            tags.append(level << 2 | int(k))
+        counts.append(len(J))
+    return (np.asarray(rows, np.int32).reshape(-1, tip.JOB_COLS),
+            np.asarray(tags, np.int32), np.asarray(counts, np.int32),
+            np.concatenate(maps + [np.zeros(1, np.uint8)]))
+
+
+def _tickets(tags, rng=None):
+    """The walk's tickets in order or, with ``rng``, permuted within each
+    level."""
+    t = np.arange(len(tags), dtype=np.int32)
+    if rng is None:
+        return t
+    lvl = np.asarray(tags) >> 2
+    return np.concatenate([rng.permutation(t[lvl == v])
+                           for v in np.unique(lvl)]).astype(np.int32)
+
+
+def _walk_host(lib, canvas, luma, resid, jobs, tags, counts, pidx, ph,
+               ss_hor, ss_ver, bitdepth, order):
+    """The host build's walk on a copy of ``canvas``: (rc, canvas)."""
+    got = np.ascontiguousarray(canvas).copy()
+    luma = np.ascontiguousarray(luma)
+    resid, jobs, tags, counts, pidx = (
+        np.ascontiguousarray(a) for a in (resid, jobs, tags, counts, pidx))
+    rc = lib.walk_host(got.ctypes.data, luma.ctypes.data, resid.ctypes.data,
+                       got.shape[0], got.shape[1], ph, luma.shape[0],
+                       luma.shape[1], jobs.ctypes.data, tags.ctypes.data,
+                       counts.ctypes.data, len(jobs), len(counts),
+                       order.ctypes.data, pidx.ctypes.data, ss_hor, ss_ver,
+                       bitdepth, 256)  # csrc/ipred.cu WALK_THREADS
+    return rc, got
+
+
+@pytest.mark.parametrize("order", ["tickets", "permuted"])
+@pytest.mark.parametrize("bitdepth", [8, 10, 12])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_walk_source_on_host(kernel_on_host, stacked, bitdepth, order):
+    """The walk's dispatch and level bookkeeping (csrc/ipred_core.cuh
+    unit_phases / unit_phase / level_ready / level_finish), built as host
+    C++, one ticket at a time in ticket order and permuted within each
+    level, against :func:`walk_plain` on six levels mixing prediction,
+    CFL and palette units."""
+    H, W = 128, 128
+    ph = 64 if stacked else H
+    ss = 1 if stacked else 0
+    YH, YW = H << ss, W << ss
+    rng = np.random.default_rng(bitdepth * 5 + stacked)
+    canvas = _canvas(rng, H, W, bitdepth)
+    luma = _canvas(rng, YH, YW, bitdepth, extremes=True)
+    resid = _resid(rng, H, W, bitdepth)
+    sizes = [s for s in SIZES_ALL if 2 * s[1] + 8 <= ph]
+    J, T, C, pidx = walk_schedule(rng, H, W, ph, YH, YW, 6, sizes,
+                                  bitdepth)
+    assert {int(k) for k in T & 3} == {0, 1, 2}
+    want = tip.walk_plain(
+        torch.from_numpy(canvas.copy()), torch.from_numpy(luma),
+        torch.from_numpy(resid), torch.from_numpy(J), torch.from_numpy(T),
+        torch.from_numpy(C), torch.from_numpy(pidx), ph, ss, ss,
+        bitdepth).numpy()
+    tickets = _tickets(T, np.random.default_rng(bitdepth) if
+                       order == "permuted" else None)
+    rc, got = _walk_host(kernel_on_host, canvas, luma, resid, J, T, C, pidx,
+                         ph, ss, ss, bitdepth, tickets)
+    assert rc == 0
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(want, canvas)
+
+
+def test_walk_host_waits_for_the_level_below(kernel_on_host):
+    """A unit taken before the level below it has finished is not ready
+    (the kernel's CTA would wait), and a table whose counts exceed its
+    units never completes a level."""
+    rng = np.random.default_rng(4)
+    H = W = 64
+    canvas, resid = _canvas(rng, H, W, 8), _resid(rng, H, W, 8)
+    J, T, C, pidx = walk_schedule(rng, H, W, H, H, W, 3, [(4, 4), (8, 8)],
+                                  8)
+    order = _tickets(T)
+    first1 = int(np.flatnonzero(T >> 2 == 1)[0])
+    order[[first1 - 1, first1]] = order[[first1, first1 - 1]]
+    rc, _ = _walk_host(kernel_on_host, canvas, canvas, resid, J, T, C, pidx,
+                       H, 0, 0, 8, order)
+    assert rc == first1
+    more = C.copy()
+    more[-1] += 1
+    rc, _ = _walk_host(kernel_on_host, canvas, canvas, resid, J, T, more,
+                       pidx, H, 0, 0, 8, _tickets(T))
+    assert rc == -1
+
+
+@pytest.mark.parametrize("bitdepth,stacked", [(8, False), (10, True)])
+def test_walk_plain_matches_jax_multi_run(bitdepth, stacked):
+    """:func:`walk_plain` on three levels of prediction units against the
+    reference's fused run of levels, dav1d_tpu/recon/device_intra.
+    _multi_run_program: one (w, h) key per size, each level's units
+    padded to a power of two with the reference's sentinel rows."""
+    import jax.numpy as jnp
+
+    from dav1d_tpu.recon.device_intra import _multi_run_program
+
+    H, W = 64, 64
+    ph = 32 if stacked else H
+    sizes = [(4, 4), (8, 4), (4, 8), (8, 8)] if stacked else \
+        [(4, 4), (8, 8), (16, 8), (4, 16)]
+    rng = np.random.default_rng(bitdepth + stacked)
+    canvas, resid = _canvas(rng, H, W, bitdepth), _resid(rng, H, W,
+                                                         bitdepth)
+    J, T, C, pidx = walk_schedule(rng, H, W, ph, H, W, 3, sizes, bitdepth,
+                                  kinds=(tip.KIND_PRED,))
+    got = tip.walk_plain(
+        torch.from_numpy(canvas.copy()), None, torch.from_numpy(resid),
+        torch.from_numpy(J), torch.from_numpy(T), torch.from_numpy(C), None,
+        ph, 0, 0, bitdepth).numpy()
+    ends = np.cumsum(C)
+    levels = [J[e - n:e] for e, n in zip(ends, C)]
+    keyspecs, parts = [], []
+    for w, h in sorted({tuple(r) for r in J[:, [tip.J_W, tip.J_H]]}):
+        per = [L[(L[:, tip.J_W] == w) & (L[:, tip.J_H] == h)]
+               for L in levels]
+        capg = 1 << max(0, (max(len(u) for u in per) - 1).bit_length())
+        metas = np.zeros((len(levels), capg, R_PREDROW), np.int32)
+        metas[:, :, 0], metas[:, :, 4], metas[:, :, 6] = H, 1, 1
+        for g, u in enumerate(per):
+            metas[g, :len(u)] = _ref_meta(u)
+        keyspecs.append((int(w), int(h), capg))
+        parts.append(metas)
+    prog = _multi_run_program((H, W), ph, bitdepth, tuple(keyspecs),
+                              len(levels))
+    want = np.asarray(prog(jnp.asarray(canvas), jnp.asarray(resid),
+                           jnp.asarray(np.concatenate(parts, axis=1))))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fault", ["unsorted", "counts", "kind", "tags"])
+def test_walk_refuses_a_bad_table(fault):
+    """The wrapper checks the table on CPU tensors (:func:`check_walk`):
+    tags out of level order, counts that do not sum to the units, a kind
+    outside 0..2, a tag count that is not the job count."""
+    rng = np.random.default_rng(6)
+    H = W = 64
+    canvas, resid = _canvas(rng, H, W, 8), _resid(rng, H, W, 8)
+    J, T, C, pidx = walk_schedule(rng, H, W, H, H, W, 3, [(4, 4), (8, 8)],
+                                  8)
+    tip.check_walk(T, C, len(J))
+    T, C = T.copy(), C.copy()
+    if fault == "unsorted":
+        T[[0, -1]] = T[[-1, 0]]
+    elif fault == "counts":
+        C[-1] += 1
+    elif fault == "kind":
+        T[-1] |= 3
+    else:
+        T = T[:-1]
+    match = {"unsorted": "not sorted", "counts": "counts",
+             "kind": "kind outside", "tags": "tags"}[fault]
+    with pytest.raises(ValueError, match=match):
+        tip.walk(torch.from_numpy(canvas), None, torch.from_numpy(resid),
+                 torch.from_numpy(J), torch.from_numpy(T),
+                 torch.from_numpy(C), torch.from_numpy(pidx), H, 0, 0, 8)
+
+
+def test_walk_ctas():
+    assert tip.walk_ctas([7]) == 7
+    assert tip.walk_ctas([3, 5, 2, 9]) == 11
+    assert tip.walk_ctas([]) == 0
 
 
 # ---- the schedule --------------------------------------------------------
@@ -613,3 +872,49 @@ def test_levels_read_only_earlier_levels(tmp_path, name, monkeypatch):
                                 assert lvl[y >> 2, x >> 2] < level, (
                                     name, ch, kind, r, (y, x))
     assert n_units > 0
+
+
+@pytest.mark.parametrize("name", ["angular_cfl", "screen_palette", "hbd10",
+                                  "tiles"])
+def test_walk_host_replays_the_decode(kernel_on_host, tmp_path, name,
+                                      monkeypatch):
+    """The walks of a tests/test_device_intra.CASES decode with device
+    intra on the CPU (their output is what test_torch_decode holds
+    against the JAX host tier): the host build of the walk, from each
+    walk's input canvas, in ticket order and permuted within each level,
+    gives the walk's output exactly."""
+    from dav1d_tpu.containers import read_ivf
+    from dav1d_tpu_torch.decoder import Decoder, Settings
+
+    seen = []
+    walk = tip.walk
+
+    def recording(canvas, luma, resid, jobs, tags, counts, pidx, *rest,
+                  **kw):
+        before = canvas.clone()
+        lumac = (canvas if luma is None else luma).clone()
+        out = walk(canvas, luma, resid, jobs, tags, counts, pidx, *rest,
+                   **kw)
+        # copies: on the CPU the uploads share the decoder's host buffers
+        seen.append((before.numpy(), lumac.numpy(), resid.numpy().copy(),
+                     jobs.numpy().copy(), tags.numpy().copy(),
+                     counts.numpy().copy(),
+                     np.zeros(1, np.uint8) if pidx is None else
+                     pidx.numpy().copy(), *rest, out.clone().numpy()))
+        return out
+
+    monkeypatch.setattr(tip, "walk", recording)
+    dec = Decoder(Settings(two_pass=True, max_frame_delay=4), device="cpu",
+                  device_intra=True)
+    for tu, _ in read_ivf(encode_intra_case(tmp_path, name)):
+        dec.send_data(tu)
+        while dec.get_picture() is not None:
+            pass
+    assert seen
+    rng = np.random.default_rng(len(name))
+    for *args, want in seen:
+        tags = args[4]
+        for order in (_tickets(tags), _tickets(tags, rng)):
+            rc, got = _walk_host(kernel_on_host, *args, order)
+            assert rc == 0
+            np.testing.assert_array_equal(got, want)
