@@ -16,8 +16,10 @@ Phases; any failure exits non-zero:
 1. print the card's name and power limit (nvidia-smi);
 2. build the port's kernels from csrc/ (one nvcc per source, sm_90a)
    and, at the same time, the port's native C (cc, native/); print
-   ptxas's registers and spills and the itx kernel's registers, shared
-   memory and resident CTAs per SM at 8/10 and 12-bit;
+   ptxas's registers and spills, the itx kernel's registers, shared
+   memory and resident CTAs per SM at 8/10 and 12-bit, and the
+   registers and shared memory of the fg (luma, chroma), lr_wiener and
+   lr_sgr kernels;
 3. hold each kernel against its plain PyTorch version on the card,
    exactly, at the decoder's 1080p shapes (4:2:0 luma and chroma planes,
    random edge/unit maps with every class present; CDEF also on flat
@@ -40,10 +42,14 @@ Phases; any failure exits non-zero:
    tables at the 1080p planes with unit widths 128/192/256/384 and
    stripe heights 28/32/56/64 in all 16 edge combinations, on blocky
    planes and on the pixels {0, 1, 2^bd-2, 2^bd-1}, where the
-   self-guided products are largest; film grain (fg) on every plane of
-   1080p 4:2:0 pictures with random grain parameters: luma, chroma with
-   uv_mult, chroma from luma, overlap on and off, the restricted range,
-   an odd 1919x1079 picture, junk beyond it in the allocation; the intra
+   self-guided products are largest, and the Wiener units also on units
+   narrower than a 16-byte copy or a 64-column chunk (1, 2, 3, 37, 65
+   columns) on stripes of 4, 13 and 28 rows; film grain (fg) on every
+   plane of 1080p 4:2:0 pictures with random grain parameters: luma,
+   chroma with uv_mult, chroma from luma, overlap on and off, the
+   restricted range, an odd 1919x1079 picture, junk beyond it in the
+   allocation, and that picture's planes starting one column into their
+   allocation (no row 16-byte aligned: the kernel's ragged path); the intra
    kernels on 1080p-shaped canvases: prediction units (ipred) of every
    size 4..64, mode, angle of tests/test_ops_ipred.py:50,58,69 with
    every flag, and edge-availability combination on the luma canvas and
@@ -98,8 +104,9 @@ Phases; any failure exits non-zero:
    most 64x64 jobs); time the bare
    launches of the C entry point on the same input, queued behind a spin
    kernel so that the card runs them back to back (``launch_ms``: device
-   time, where the wrapper's ``ms`` also holds its host work); and
-   compute each kernel's bound, the least time the card could take for
+   time, where the wrapper's ``ms`` also holds its host work), with the
+   registers and shared memory of fg, lr_wiener and lr_sgr beside them;
+   and compute each kernel's bound, the least time the card could take for
    the same inputs (bytes over 3.35 TB/s or 32-bit operations over 67
    Tops/s, whichever is larger), and its share, bound over launch
    time; time on the host what the MC tile list adds to the
@@ -542,23 +549,27 @@ def _extremes(rng, H, W, bitdepth):
 # 64 rows (56 the first), 32 and 28 in chroma
 LR_UW = (128, 192, 256, 384)
 LR_SH = (28, 32, 56, 64)
+# Wiener units narrower than a 16-byte copy or a 64-column chunk, and
+# stripes that are not a multiple of a 16-row band
+LR_NARROW = [(uw, sh) for uw in (1, 2, 3, 37, 65) for sh in (4, 13, 28)]
 
 
-def _lr_jobs(rng, W, h, per, kind, variant=0):
+def _lr_jobs(rng, W, h, per, kind, variant=0, sizes=None):
     """A job table (ops/lr.py job_table columns) of ``per`` units of each
-    (width, stripe height) of LR_UW x LR_SH, placed row by row with 4
-    pixels around each (so every edge combination reads inside the
-    plane), the 16 edge combinations spread over them; every second
-    unit's plane height ends just below its bottom context, where
+    (width, stripe height) of ``sizes`` (default LR_UW x LR_SH), placed
+    row by row with 4 pixels around each (so every edge combination reads
+    inside the plane), the 16 edge combinations spread over them; every
+    second unit's plane height ends just below its bottom context, where
     min(y + sh + 1, h - 1) clamps.  Wiener: half filters in the
-    bitstream's ranges; self-guided: the strengths of a sgr_params
-    entry of ``variant``, weights in their ranges.  Returns (jobs, rows
-    the units take)."""
+    bitstream's ranges; self-guided: the strengths of a sgr_params entry
+    of ``variant``, weights in their ranges.  Returns (jobs, rows the
+    units take)."""
     import numpy as np
 
     from dav1d_tpu_torch import tables
 
-    geo = [(uw, sh) for uw in LR_UW for sh in LR_SH] * per
+    sizes = sizes or [(uw, sh) for uw in LR_UW for sh in LR_SH]
+    geo = sizes * per
     rows, x, y, row_h = [], 4, 4, 0
     for i, (uw, sh) in enumerate(geo):
         if x + uw + 4 > W:
@@ -616,12 +627,18 @@ def _fg_data(rng, overlap, csfl, restricted):
     return d
 
 
-# (label, width, height, chroma_scaling_from_luma, overlap, restricted)
-FG_VARIANTS = [("1080p uv_mult overlap", 1920, 1080, 0, 1, 0),
+# (label, width, height, chroma_scaling_from_luma, overlap, restricted,
+# first column of the planes in their allocation: 1, in allocations of
+# 1924 / 964 columns (row strides a multiple of 16 bytes), puts no row of
+# any plane on a 16-byte boundary, so every group takes the kernel's
+# ragged path)
+FG_VARIANTS = [("1080p uv_mult overlap", 1920, 1080, 0, 1, 0, 0),
                ("1080p from luma no overlap restricted", 1920, 1080, 1, 0,
-                1),
+                1, 0),
                ("1919x1079 uv_mult overlap restricted", 1919, 1079, 0, 1,
-                1)]
+                1, 0),
+               ("1919x1079 at column 1 uv_mult overlap", 1919, 1079, 0, 1,
+                0, 1)]
 
 
 def _fg_cases(rng, device, bd, shapes=SHAPES):
@@ -637,15 +654,22 @@ def _fg_cases(rng, device, bd, shapes=SHAPES):
     from dav1d_tpu_torch.recon import filmgrain as rfg
 
     out = []
-    for label, w, h, csfl, overlap, restricted in FG_VARIANTS:
+    for label, w, h, csfl, overlap, restricted, col in FG_VARIANTS:
         d = _fg_data(rng, overlap, csfl, restricted)
         pic = types.SimpleNamespace(
             frame_hdr=types.SimpleNamespace(
                 film_grain=types.SimpleNamespace(data=d)),
             seq_hdr=types.SimpleNamespace(mtrx=1), layout=PixelLayout.I420,
             bitdepth=bd, width=w, height=h)
-        planes = [torch.from_numpy(_plane(rng, *shapes[k][:2], bd)).to(
-            device) for k in ("luma", "chroma", "chroma")]
+        # (a row stride 4 columns wider keeps every row off the boundary)
+        pad = 4 if col else 0
+        planes = [torch.from_numpy(_plane(
+            rng, shapes[k][0], shapes[k][1] + pad, bd)).to(device)[
+                :, col:col + shapes[k][1]]
+            for k in ("luma", "chroma", "chroma")]
+        if col % 4:
+            _require(all(p.data_ptr() % 16 and p.stride(0) % 4 == 0
+                         for p in planes), f"{label}: a row is aligned")
         _, tabs = rfg.grain_tables(pic)
         prm = rfg.plane_params(pic)
         offs = torch.from_numpy(ofg.row_offsets(
@@ -961,11 +985,17 @@ def make_cases(device, shapes=SHAPES, seed=0):
             per = 4 if kind == "luma" else 1
             for label, make in (("", _plane), (" extremes", _extremes)):
                 post, pre = (dev(make(rng, H, W, bd)) for _ in range(2))
-                jobs, used = _lr_jobs(rng, W, h, per, "w")
-                _require(used <= H, f"{kind}: units take {used} rows")
-                cases["lr_wiener"].append((
-                    f"{kind} {len(jobs)} units{label} bd{bd}", olr.wiener,
-                    olr.wiener_plain, (post, pre, dev(jobs), bd)))
+                # (bands as the wrapper chooses them, and whole stripes)
+                for what, sizes, band in (("", None, 0),
+                                          (" 64-row bands", None, 64),
+                                          (" narrow/short", LR_NARROW, 0)):
+                    jobs, used = _lr_jobs(rng, W, h, per, "w", sizes=sizes)
+                    _require(used <= H, f"{kind}: units take {used} rows")
+                    cases["lr_wiener"].append((
+                        f"{kind} {len(jobs)}{what} units{label} bd{bd}",
+                        functools.partial(olr.wiener, chunks=dev(
+                            olr.chunk_table(jobs, band))), olr.wiener_plain,
+                        (post, pre, dev(jobs), bd)))
                 for variant in (0, 1, 2):
                     jobs, _ = _lr_jobs(rng, W, h, per, "s", variant)
                     cases["lr_sgr"].append((
@@ -1468,6 +1498,26 @@ def itx_occupancy():
             for bd, i in (("8/10-bit", 0), ("12-bit", 3))}
 
 
+def restore_grain_attrs():
+    """Registers and static shared bytes of the fg (luma and chroma),
+    lr_wiener and lr_sgr kernels (cudaFuncGetAttributes): {name: {...}}."""
+    import ctypes
+
+    from dav1d_tpu_torch.kernels import build
+
+    lib = build.lib()
+    f, w = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
+    for fn, v in ((lib.dtpu_fg_attrs, f), (lib.dtpu_lr_attrs, w)):
+        rc = fn(v)
+        _require(rc == 0, f"kernel attributes: {build.error_string(rc)}")
+    luma = {"registers": f[0], "shared_bytes": f[1]}
+    chroma = {"registers": f[2], "shared_bytes": f[3]}
+    return {"fg": {"registers": max(f[0], f[2]), "shared_bytes": f[1],
+                   "luma": luma, "chroma": chroma},
+            "lr_wiener": {"registers": w[0], "shared_bytes": w[1]},
+            "lr_sgr": {"registers": w[2], "shared_bytes": w[3]}}
+
+
 class ChainLog:
     """Frame by frame, what the device filter chain did during a decode:
     a context that wraps recon/device_chain.filter_chain_device (frames
@@ -1852,6 +1902,9 @@ def main() -> int:
             print("  ptxas:", line.strip(), flush=True)
     occ = itx_occupancy()
     print(f"  itx kernel (64 threads a CTA): {occ}", flush=True)
+    attrs = restore_grain_attrs()
+    print(f"  fg / lr_wiener / lr_sgr kernels (registers, static shared "
+          f"bytes): {attrs}", flush=True)
 
     # (ops/itx imports the port's recon/itx, which loads the native C:
     # after its timed build above)
@@ -2087,10 +2140,12 @@ def main() -> int:
         swall = time.perf_counter() - t0
         sspans, sxfer, ssink = devrt.SPANS, devrt.XFER, devrt.SINK
         devrt.SPANS = devrt.XFER = devrt.SINK = None
-        scalls = [(tag, args) for tag, _, args, _ in ssink
-                  if tag in LR_KERNELS]
-        sbound = {k: sum(bound(k, a)[0] for t, a in scalls if t == k) / sn
-                  for k in LR_KERNELS}
+        # of the keywords only the Wiener call's chunk table (the
+        # kernel's schedule; an ``out`` would hold the decode's result)
+        scalls = [(tag, args, {k: v for k, v in kw.items() if k == "chunks"})
+                  for tag, _, args, kw in ssink if tag in LR_KERNELS]
+        sbound = {k: sum(bound(k, a)[0] for t, a, _ in scalls if t == k)
+                  / sn for k in LR_KERNELS}
         lr_report[name] = {
             "fps": max(sruns), "fps_runs": sruns,
             "wall_ms_per_frame": swall * 1e3 / sn,
@@ -2106,15 +2161,17 @@ def main() -> int:
               f"{sxfer['up'] // sn} B, download {sxfer['down'] // sn} B; "
               f"bound (ms) { {k: round(v, 5) for k, v in sbound.items()} }",
               flush=True)
-        for i, (tag, args) in enumerate(scalls):
-            e = _max_abs_err(kernel_of[tag](*args), plain_of[tag](*args))
+        for i, (tag, args, kw) in enumerate(scalls):
+            # kw: the Wiener call's chunk table (the kernel's schedule)
+            e = _max_abs_err(kernel_of[tag](*args, **kw),
+                             plain_of[tag](*args))
             what = (f"{tuple(args[0].shape)} -> {args[1]} wide"
                     if tag == "resize" else f"{args[2].shape[0]} units "
                     f"on {tuple(args[0].shape)}")
             print(f"  {tag} {name} call {i}: {what}, max_abs_err={e}",
                   flush=True)
             errs[tag] = max(errs[tag], e)
-            lr_calls[tag].append((name, args))
+            lr_calls[tag].append((name, args, kw))
     for k in LR_KERNELS:
         _require(lr_calls[k], f"the traced decodes made no {k} call")
         _require(errs[k] == 0, f"{k} disagrees with its plain version on "
@@ -2246,13 +2303,14 @@ def main() -> int:
         f"{MAIN_STREAM} key frame luma walk ({wkey['levels']} levels, "
         f"{wkey['units']} units)", functools.partial(oip.walk, **wl["kw"]),
         oip.walk_plain, wargs)
-    name, big = max(lr_calls["resize"], key=lambda c: c[1][0].numel())
+    name, big, _ = max(lr_calls["resize"], key=lambda c: c[1][0].numel())
     timed["resize"] = (f"{name} luma call {tuple(big[0].shape)}",
                        oresize.resize_plane, oresize.resize_plane_plain, big)
     for k in ("lr_wiener", "lr_sgr"):
-        name, big = max(lr_calls[k], key=lambda c: c[1][2].shape[0])
+        name, big, kw = max(lr_calls[k], key=lambda c: c[1][2].shape[0])
         timed[k] = (f"{name} call of {big[2].shape[0]} units "
-                    f"{tuple(big[0].shape)}", kernel_of[k], plain_of[k], big)
+                    f"{tuple(big[0].shape)}",
+                    functools.partial(kernel_of[k], **kw), plain_of[k], big)
     big = max(mc_calls, key=lambda a: a[4])
     timed["mc"] = (f"1080p inter frame of the decode ({big[2].shape[0]} "
                    f"jobs)", omc.put_8tap_resident,
@@ -2309,6 +2367,12 @@ def main() -> int:
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "share": bound_ms / l_ms, "library_ms": None,
                         "on_path": name not in LEVEL_KERNELS})
+        if name in attrs:
+            kernels[-1].update(registers=attrs[name]["registers"],
+                               shared_bytes=attrs[name]["shared_bytes"])
+            print(f"  {name:12s} {attrs[name]['registers']} registers, "
+                  f"{attrs[name]['shared_bytes']} B of static shared "
+                  f"memory", flush=True)
         if name == "ipred_walk":
             # levels x one handoff plus the smallest unit: what a chain of
             # dependent levels cannot beat

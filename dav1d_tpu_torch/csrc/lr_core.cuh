@@ -1,35 +1,35 @@
 // The arithmetic of the loop-restoration kernels (csrc/lr.cu): the
-// phases of one column chunk of one stripe unit, over the chunk's shared
-// arrays.
+// phases of one CTA, over its shared arrays.
 //
 // A job is one stripe unit of one plane (ops/lr.py job_table): its
 // origin (x, y), width uw <= 384 and height sh <= 64, LR edge flags, the
 // plane's height h (the last row the bottom context may read is h - 1)
 // and six filter parameters: the Wiener half-filters fh[3], fv[3], or
 // the self-guided s0, s1, w0, w1 and variant (0: 5x5 only, 1: 3x3 only,
-// 2: both).  A CTA takes one chunk of CW output columns of one job.  Its
-// phases, each a loop that thread `tid` of `nt` runs over its share:
+// 2: both).  Both filters read a padded window, (sh + 6) x (cw + 6) for
+// a chunk of cw output columns, from the post-CDEF plane and the
+// pre-CDEF snapshot (recon/lr_apply _pad_unit_indices): columns clamped
+// at an absent left or right edge and to the plane; the three rows above
+// from the snapshot's rows y - 2, y - 2, y - 1 with a top edge, else the
+// unit's first row; the three below from the snapshot's rows y + sh, then
+// min(y + sh + 1, h - 1) twice with a bottom edge, else the unit's last
+// row.  Each phase is a loop that thread `tid` runs over its share:
 //
-//   stage   the padded window, (sh + 6) x (cw + 6), from the post-CDEF
-//           plane and the pre-CDEF snapshot (recon/lr_apply
-//           _pad_unit_indices): columns clamped at an absent left or
-//           right edge and to the plane; the three rows above from the
-//           snapshot's rows y - 2, y - 2, y - 1 with a top edge, else
-//           the unit's first row; the three below from the snapshot's
-//           rows y + sh, then min(y + sh + 1, h - 1) twice with a bottom
-//           edge, else the unit's last row;
-//   Wiener  the horizontal 7-tap pass into an int32 intermediate
-//           (+2^(bd+6) + 2^(rb_h-1), >> rb_h, clipped to
-//           [0, 2^(bd+8-rb_h))), then the vertical pass (rounded by rb_v
-//           about 2^(bd+rb_v-1), clipped to the bit depth) into the
-//           output (reference wiener_filter_h/v,
-//           src/looprestoration_tmpl.c:44-190);
-//   SGR     the (A, B) rows of the 3x3 boxes (every row -1..sh) and of
-//           the 5x5 boxes (odd rows), then per pixel the 3x3 weights
-//           4/3 (>> 9) and the 5x5 weights 6/5 on even rows (>> 9) and
-//           odd rows (>> 8), blended src + ((w0 t5 + w1 t3 + 2^10) >>
-//           11) and clipped (reference sgr_5x5_c / sgr_3x3_c /
-//           sgr_mix_c, src/looprestoration_tmpl.c:679-1090).
+//   Wiener  a CTA takes one band of a chunk (a chunk table row, below):
+//           the window's row and column tables, then sub-band by
+//           sub-band the copies of its rows, the horizontal 7-tap pass
+//           into a ring of the int32 intermediate (+2^(bd+6) +
+//           2^(rb_h-1), >> rb_h, clipped to [0, 2^(bd+8-rb_h))), the
+//           vertical pass (rounded by rb_v about 2^(bd+rb_v-1), clipped
+//           to the bit depth) into the output (reference
+//           wiener_filter_h/v, src/looprestoration_tmpl.c:44-190);
+//   SGR     a CTA takes one chunk of SGR_CW columns of one job: the
+//           whole window staged, the (A, B) rows of the 3x3 boxes (every
+//           row -1..sh) and of the 5x5 boxes (odd rows), then per pixel
+//           the 3x3 weights 4/3 (>> 9) and the 5x5 weights 6/5 on even
+//           rows (>> 9) and odd rows (>> 8), blended src + ((w0 t5 + w1
+//           t3 + 2^10) >> 11) and clipped (reference sgr_5x5_c /
+//           sgr_3x3_c / sgr_mix_c, src/looprestoration_tmpl.c:679-1090).
 //
 // Exactness: z = (p s + 2^19) >> 20 and A = (x su one_by_x + 2^11) >> 12
 // exceed int32 at 12-bit; both are int64 products here.  (The plain
@@ -44,7 +44,12 @@
 //
 // The header compiles as CUDA device code (included by lr.cu) and as
 // plain C++ (a host build runs the same phases thread by thread), so
-// nothing outside the LR_* macros uses a CUDA builtin.
+// nothing outside the LR_* macros uses a CUDA builtin: LR_CP4 / LR_CP16
+// are cp.async copies of 4 / 16 bytes into shared memory on the card,
+// LR_CP_COMMIT closes a group of them and LR_CP_WAIT1 waits for all but
+// the last group; on the host the copies are plain and the rest nothing.
+// LR_LDG16 (through the read-only path), LR_LD16 and LR_ST16 move 4
+// ints at a 16-byte aligned address.
 #pragma once
 
 #ifdef __CUDACC__
@@ -52,12 +57,48 @@
 #define LR_CONST __constant__
 #define LR_LDG(p) __ldg(p)
 #define LR_TRAP() __trap()
+__device__ __forceinline__ void lr_cp_async(int* dst, const int* src,
+                                            int bytes) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if (bytes == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                     "l"(src)
+                     : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                     "l"(src)
+                     : "memory");
+}
+#define LR_CP4(dst, src) lr_cp_async(dst, src, 4)
+#define LR_CP16(dst, src) lr_cp_async(dst, src, 16)
+#define LR_CP_COMMIT() asm volatile("cp.async.commit_group;\n" ::: "memory")
+#define LR_CP_WAIT1() asm volatile("cp.async.wait_group 1;\n" ::: "memory")
+#define LR_LDG16(p, v)                                               \
+    do {                                                             \
+        const int4 t_ = __ldg(reinterpret_cast<const int4*>(p));     \
+        (v)[0] = t_.x, (v)[1] = t_.y, (v)[2] = t_.z, (v)[3] = t_.w;  \
+    } while (0)
+#define LR_LD16(p, v)                                          \
+    do {                                                       \
+        const int4 t_ = *reinterpret_cast<const int4*>(p);     \
+        (v)[0] = t_.x, (v)[1] = t_.y, (v)[2] = t_.z, (v)[3] = t_.w; \
+    } while (0)
+#define LR_ST16(p, v) \
+    (*reinterpret_cast<int4*>(p) = make_int4((v)[0], (v)[1], (v)[2], (v)[3]))
 #else
 #include <stdlib.h>
+#include <string.h>
 #define LR_FN inline
 #define LR_CONST
 #define LR_LDG(p) (*(p))
 #define LR_TRAP() abort()
+#define LR_CP4(dst, src) (*(dst) = *(src))
+#define LR_CP16(dst, src) memcpy(dst, src, 16)
+#define LR_CP_COMMIT()
+#define LR_CP_WAIT1()
+#define LR_LDG16(p, v) memcpy(v, p, 16)
+#define LR_LD16(p, v) memcpy(v, p, 16)
+#define LR_ST16(p, v) memcpy(p, v, 16)
 #endif
 
 namespace lr {
@@ -109,17 +150,25 @@ struct Job {
     int cx0, cw;
 };
 
-// Job row `row`, chunk `chunk` of cw_max columns; false when the chunk
-// lies beyond the unit.  Traps on a unit the kernels do not take.
-LR_FN bool load_job(Job& j, const int* row, int chunk, int cw_max) {
-    j.x = LR_LDG(row + J_X);
-    j.y = LR_LDG(row + J_Y);
-    j.uw = LR_LDG(row + J_UW);
-    j.sh = LR_LDG(row + J_SH);
-    j.edges = LR_LDG(row + J_EDGES);
-    j.h = LR_LDG(row + J_H);
-    for (int k = 0; k < 6; k++) j.p[k] = LR_LDG(row + J_P + k);
+// The fields of a job row's values v.  Traps on a unit the kernels do not
+// take.
+LR_FN void set_job(Job& j, const int* v) {
+    j.x = v[J_X];
+    j.y = v[J_Y];
+    j.uw = v[J_UW];
+    j.sh = v[J_SH];
+    j.edges = v[J_EDGES];
+    j.h = v[J_H];
+    for (int k = 0; k < 6; k++) j.p[k] = v[J_P + k];
     if (j.uw < 1 || j.uw > MAX_UW || j.sh < 1 || j.sh > MAX_SH) LR_TRAP();
+}
+
+// Job row `row`, chunk `chunk` of cw_max columns; false when the chunk
+// lies beyond the unit.
+LR_FN bool load_job(Job& j, const int* row, int chunk, int cw_max) {
+    int v[JOB_COLS];
+    for (int k = 0; k < JOB_COLS; k++) v[k] = LR_LDG(row + k);
+    set_job(j, v);
     j.cx0 = chunk * cw_max;
     if (j.cx0 >= j.uw) return false;
     j.cw = j.uw - j.cx0 < cw_max ? j.uw - j.cx0 : cw_max;
@@ -180,12 +229,128 @@ LR_FN void stage(int* win, int ws, const Job& j, const Planes& p, int tid,
     }
 }
 
-// ---- Wiener -------------------------------------------------------------
+// ---- Wiener: a chunk table of row bands, streamed through a ring -------
+//
+// A launch takes a chunk table (ops/lr.py chunk_table): one row per live
+// (job, 64-column chunk, band of output rows), so no CTA exists only to
+// return.  A CTA resolves its window's row sources (win_row) and column
+// clamps (win_col) once, into shared tables, then streams the band's
+// nr + 6 window rows in sub-bands of SB = WIENER_SB rows through two raw
+// buffers: sub-band g + 1's copies (LR_CP*: cp.async on the card) are in
+// flight while sub-band g runs its horizontal pass into a ring of SB + 6
+// rows of the intermediate and its vertical pass out of it.  Where the
+// window's columns need no clamp and the planes' rows are 16-byte
+// aligned, a row is staged as 16-byte copies from the aligned column a at
+// or below the window's first (its columns then start `shift` words into
+// the raw row); elsewhere element by element through the column table.
+// In a chunk narrower than a multiple of 4 columns the raw words past a
+// row's copies are zero (wiener_setup).
 
-struct WienerTile {
-    int win[(MAX_SH + 6) * (WIENER_CW + 6)];
-    int mid[(MAX_SH + 6) * WIENER_CW];
+// columns of a chunk row (int32, ops/lr.py chunk_table): the job's index
+// (for the host's check), the chunk's first column, the band's first
+// output row and rows, then the job's row, so that a CTA's first load
+// (four 16-byte loads of a 64-byte row) brings all it needs
+constexpr int CHUNK_COLS = 4 + JOB_COLS;
+constexpr int C_JOB = 0, C_X = 1, C_R0 = 2, C_NR = 3, C_ROW = 4;
+constexpr int WIENER_THREADS = 256;
+// window rows of a sub-band (the vertical pass takes WIENER_SB / 16 rows a
+// thread)
+constexpr int WIENER_SB = 32;
+// words of a raw row: the window's 70 columns from an aligned start (the
+// horizontal pass reads words 4q .. 4q + 15 of it, q < 16)
+constexpr int RAW_S = 76;
+
+struct WienerRing {
+    int raw[2][WIENER_SB * RAW_S];         // window rows of two sub-bands
+    int mid[(WIENER_SB + 6) * WIENER_CW];  // the horizontal pass, a ring
+    const int* row[MAX_SH + 6];  // plane row of each window row
+    int col[WIENER_CW + 6];      // plane column of each window column
 };
+
+// One CTA's band: its job, its chunk's columns (Job cx0, cw), its first
+// output row r0 and rows nr in the unit, and how its rows are staged.
+struct Band {
+    Job j;
+    int r0, nr;
+    bool vec;   // 16-byte copies
+    int a;      // plane column of raw word 0 (vec)
+    int shift;  // window column 0 in a raw row
+    int nw;     // 16-byte copies a row (vec)
+};
+
+LR_FN bool aligned16(const int* q) {
+    return (reinterpret_cast<unsigned long long>(q) & 15) == 0;
+}
+
+// Chunk row `ci` of the table (16-byte aligned).  Traps on a row the
+// kernel does not take (ops/lr.py check_chunks refuses it on the host).
+LR_FN void load_band(Band& b, const int* chunks, int ci, const Planes& p) {
+    const int* c = chunks + (long long)ci * CHUNK_COLS;
+    int v[CHUNK_COLS];
+#pragma unroll
+    for (int k = 0; k < CHUNK_COLS; k += 4) LR_LDG16(c + k, v + k);
+    Job& j = b.j;
+    set_job(j, v + C_ROW);
+    j.cx0 = v[C_X];
+    b.r0 = v[C_R0];
+    b.nr = v[C_NR];
+    if (j.cx0 < 0 || j.cx0 % WIENER_CW || j.cx0 >= j.uw || b.r0 < 0 ||
+        b.nr < 1 || b.r0 + b.nr > j.sh)
+        LR_TRAP();
+    j.cw = j.uw - j.cx0 < WIENER_CW ? j.uw - j.cx0 : WIENER_CW;
+    // the window's plane columns x_lo .. x_hi, unclamped?
+    const int x_lo = j.x + j.cx0 - 3, x_hi = j.x + j.cx0 + j.cw + 2;
+    const bool whole = (x_lo >= j.x || (j.edges & HAVE_LEFT)) &&
+                       (x_hi <= j.x + j.uw - 1 || (j.edges & HAVE_RIGHT)) &&
+                       x_lo >= 0 && x_hi <= p.W - 1;
+    b.vec = whole && p.W % 4 == 0 && aligned16(p.post) && aligned16(p.pre);
+    b.a = x_lo & ~3;
+    b.shift = b.vec ? x_lo - b.a : 0;
+    b.nw = (x_hi + 4 - b.a) >> 2;
+}
+
+// Sub-bands of the band's nr + 6 window rows.
+LR_FN int sub_bands(const Band& b) {
+    return (b.nr + 6 + WIENER_SB - 1) / WIENER_SB;
+}
+
+// The row and column tables, the thread's share, and in a chunk whose
+// width is not a multiple of 4 zeros in the raw words past each row's
+// copies: its horizontal pass reads them for the columns past cw, whose
+// sums the vertical pass drops, and zero keeps those sums defined.
+LR_FN void wiener_setup(WienerRing& s, const Band& b, const Planes& p,
+                        int tid) {
+    for (int i = tid; i < b.nr + 6; i += WIENER_THREADS)
+        s.row[i] = win_row(b.j, p, b.r0 + i);
+    for (int c = tid; c < b.j.cw + 6; c += WIENER_THREADS)
+        s.col[c] = win_col(b.j, p, c);
+    if (b.j.cw % 4 == 0) return;
+    const int staged = b.vec ? 4 * b.nw : b.j.cw + 6;
+    for (int r = tid; r < 2 * WIENER_SB; r += WIENER_THREADS)
+        for (int c = staged; c < RAW_S; c++)
+            s.raw[r / WIENER_SB][(r % WIENER_SB) * RAW_S + c] = 0;
+}
+
+// Issue the copies of sub-band g's window rows into raw buffer g & 1, the
+// thread's share (nothing past the band's last window row).
+LR_FN void wiener_issue(WienerRing& s, const Band& b, int g, int tid) {
+    const int r0 = g * WIENER_SB;
+    const int rows = b.nr + 6 - r0 < WIENER_SB ? b.nr + 6 - r0 : WIENER_SB;
+    int* raw = s.raw[g & 1];
+    if (b.vec) {
+        // 32 lanes a row (nw <= 19), 8 rows at a time
+        const int q = tid & 31;
+        if (q >= b.nw) return;
+        for (int r = tid >> 5; r < rows; r += WIENER_THREADS / 32)
+            LR_CP16(raw + r * RAW_S + 4 * q, s.row[r0 + r] + b.a + 4 * q);
+    } else {
+        // 128 lanes a row (cw + 6 <= 70), 2 rows at a time
+        const int c = tid & 127;
+        if (c >= b.j.cw + 6) return;
+        for (int r = tid >> 7; r < rows; r += WIENER_THREADS / 128)
+            LR_CP4(raw + r * RAW_S + c, s.row[r0 + r] + s.col[c]);
+    }
+}
 
 LR_FN void taps(const int* f, int* t) {
     t[0] = t[6] = f[0];
@@ -194,41 +359,119 @@ LR_FN void taps(const int* f, int* t) {
     t[3] = 128 - 2 * (f[0] + f[1] + f[2]);
 }
 
-LR_FN void wiener_h(WienerTile& s, const Job& j, int bd, int tid, int nt) {
-    int t[7];
-    taps(j.p, t);
-    const int rb_h = bd == 12 ? 5 : 3;
-    const int lim = (1 << (bd + 8 - rb_h)) - 1;
-    const int rnd = (1 << (bd + 6)) + (1 << (rb_h - 1));
-    const int n = (j.sh + 6) * j.cw;
-    for (int i = tid; i < n; i += nt) {
-        const int r = i / j.cw, c = i - r * j.cw;
-        const int* w = s.win + r * (WIENER_CW + 6) + c;
+// The horizontal sums of window columns S + j .. S + j + 6 (j < 4) of the
+// 16 words v, rounded (rnd, >> rb) and clipped to [0, lim].
+template <int S>
+LR_FN void hsum4(const int* v, const int* t, int rnd, int rb, int lim,
+                 int* o) {
+#pragma unroll
+    for (int j = 0; j < 4; j++) {
         int acc = rnd;
 #pragma unroll
-        for (int k = 0; k < 7; k++) acc += t[k] * w[k];
-        acc >>= rb_h;
-        s.mid[r * WIENER_CW + c] = acc < 0 ? 0 : (acc > lim ? lim : acc);
+        for (int k = 0; k < 7; k++) acc += t[k] * v[S + j + k];
+        acc >>= rb;
+        o[j] = acc < 0 ? 0 : (acc > lim ? lim : acc);
     }
 }
 
-LR_FN void wiener_v(const WienerTile& s, const Job& j, const Planes& p,
-                    int tid, int nt) {
+// The horizontal pass of sub-band g (raw buffer g & 1) into the ring: the
+// 7-tap sum, +2^(bd+6) + 2^(rb_h-1), >> rb_h, clipped to
+// [0, 2^(bd+8-rb_h)).  A thread takes 4 columns of a row from 16 raw
+// words read as four 16-byte loads, the band's shift (uniform across the
+// CTA) picking the words; columns past cw compute, from the zeroed
+// words, what the vertical pass drops.
+LR_FN void wiener_hpass(WienerRing& s, const Band& b, int g, int bd,
+                        int tid) {
+    constexpr int M = WIENER_SB + 6, TPR = WIENER_CW / 4,
+                  RS = WIENER_THREADS / TPR;
+    const int q = tid % TPR;
+    if (4 * q >= b.j.cw) return;
     int t[7];
-    taps(j.p + 3, t);
+    taps(b.j.p, t);
+    const int rb_h = bd == 12 ? 5 : 3;
+    const int lim = (1 << (bd + 8 - rb_h)) - 1;
+    const int rnd = (1 << (bd + 6)) + (1 << (rb_h - 1));
+    const int r0 = g * WIENER_SB;
+    const int rows = b.nr + 6 - r0 < WIENER_SB ? b.nr + 6 - r0 : WIENER_SB;
+    const int rt = tid / TPR;
+    const int* raw = s.raw[g & 1] + rt * RAW_S + 4 * q;
+    int* mid = s.mid + 4 * q;
+    const int slot0 = (r0 + rt) % M;
+    // rows rt, rt + RS, ... of the sub-band
+#pragma unroll
+    for (int i = 0; i < (WIENER_SB + RS - 1) / RS; i++) {
+        if (rt + RS * i >= rows) break;
+        const int* w = raw + RS * i * RAW_S;
+        int v[16], o[4];
+        LR_LD16(w, v);
+        LR_LD16(w + 4, v + 4);
+        LR_LD16(w + 8, v + 8);
+        LR_LD16(w + 12, v + 12);
+        switch (b.shift) {
+            case 0: hsum4<0>(v, t, rnd, rb_h, lim, o); break;
+            case 1: hsum4<1>(v, t, rnd, rb_h, lim, o); break;
+            case 2: hsum4<2>(v, t, rnd, rb_h, lim, o); break;
+            default: hsum4<3>(v, t, rnd, rb_h, lim, o); break;
+        }
+        const int slot = slot0 + RS * i < M ? slot0 + RS * i
+                                            : slot0 + RS * i - M;
+        LR_ST16(mid + slot * WIENER_CW, o);
+    }
+}
+
+// The vertical pass of the output rows whose 7 intermediate rows the ring
+// holds after sub-band g: rows g SB - 6 .. (g + 1) SB - 7 of the band,
+// rounded by rb_v about 2^(bd+rb_v-1), clipped to the bit depth, into the
+// output plane.  A thread takes 4 columns of SB / 16 consecutive rows
+// from SB / 16 + 6 ring rows read once (16-byte loads), and stores them
+// as 16 bytes where the output row allows it.
+LR_FN void wiener_vpass(const WienerRing& s, const Band& b, int g,
+                        const Planes& p, int tid) {
+    constexpr int M = WIENER_SB + 6, TPR = WIENER_CW / 4,
+                  VR = WIENER_SB / (WIENER_THREADS / TPR);
+    static_assert(VR >= 1, "sub-bands of at least 16 rows");
+    const int c0 = 4 * (tid % TPR);
+    const int lo = g * WIENER_SB - 6 > 0 ? g * WIENER_SB - 6 : 0;
+    const int hi = (g + 1) * WIENER_SB - 6 < b.nr ? (g + 1) * WIENER_SB - 6
+                                                  : b.nr;
+    const int o0 = lo + (tid / TPR) * VR;
+    if (c0 >= b.j.cw || o0 >= hi) return;
+    int t[7];
+    taps(b.j.p + 3, t);
     const int rb_v = p.bd == 12 ? 9 : 11;
     const int rnd = (1 << (rb_v - 1)) - (1 << (p.bd + rb_v - 1));
     const int maxp = (1 << p.bd) - 1;
-    const int n = j.sh * j.cw;
-    for (int i = tid; i < n; i += nt) {
-        const int r = i / j.cw, c = i - r * j.cw;
-        const int* m = s.mid + r * WIENER_CW + c;
-        int acc = rnd;
+    // ring rows o0 .. o0 + VR + 5 (those past hi + 5 are not used)
+    int m[VR + 6][4];
+    int slot = o0 % M;
 #pragma unroll
-        for (int k = 0; k < 7; k++) acc += t[k] * m[k * WIENER_CW];
-        acc >>= rb_v;
-        p.out[(long long)(j.y + r) * p.W + j.x + j.cx0 + c] =
-            acc < 0 ? 0 : (acc > maxp ? maxp : acc);
+    for (int i = 0; i < VR + 6; i++) {
+        LR_LD16(s.mid + slot * WIENER_CW + c0, m[i]);
+        slot = slot + 1 == M ? 0 : slot + 1;
+    }
+    const int n = b.j.cw - c0 < 4 ? b.j.cw - c0 : 4;
+    int* out = p.out + (long long)(b.j.y + b.r0 + o0) * p.W + b.j.x +
+               b.j.cx0 + c0;
+#pragma unroll
+    for (int i = 0; i < VR; i++) {
+        if (o0 + i >= hi) break;
+        int o[4];
+#pragma unroll
+        for (int j = 0; j < 4; j++) {
+            int acc = rnd;
+#pragma unroll
+            for (int k = 0; k < 7; k++) acc += t[k] * m[i + k][j];
+            acc >>= rb_v;
+            o[j] = acc < 0 ? 0 : (acc > maxp ? maxp : acc);
+        }
+        int* d = out + (long long)i * p.W;
+        if (n == 4 && aligned16(d)) {
+            LR_ST16(d, o);
+        } else {
+#pragma unroll
+            for (int j = 0; j < 4; j++)
+                if (j < n) d[j] = o[j];
+        }
     }
 }
 

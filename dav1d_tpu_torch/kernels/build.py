@@ -126,11 +126,17 @@ _SIGNATURES = {
     # src, src_stride, src_w, h, out, out_rows, out_stride, out_w, step,
     # mx0, bitdepth, stream
     "dtpu_resize": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P],
-    # post, pre, out, H, W, jobs, n_jobs, sgr, bitdepth, stream
-    "dtpu_lr": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
+    # post, pre, out, H, W, jobs, n_jobs, bitdepth, stream
+    "dtpu_lr_sgr": [_P, _P, _P, _I, _I, _P, _I, _I, _P],
+    # post, pre, out, H, W, chunks, n_chunks, bitdepth, stream
+    "dtpu_lr_wiener": [_P, _P, _P, _I, _I, _P, _I, _I, _P],
+    # out[4]: registers, static shared bytes (wiener, sgr)
+    "dtpu_lr_attrs": [_P],
     # src, src_stride, luma, luma_stride, lw, out, w, h, lut, scaling,
     # offs, n_blocks, prm (host ints), stream
     "dtpu_fg": [_P, _L, _P, _L, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P],
+    # out[4]: registers, static shared bytes (luma, chroma)
+    "dtpu_fg_attrs": [_P],
     # canvas, resid, H, W, ph, jobs, n_jobs, bitdepth, stream
     "dtpu_ipred": [_P, _P, _I, _I, _I, _P, _I, _I, _P],
     # canvas, luma, resid, H, W, ph, YH, YW, jobs, n_jobs, ss_hor, ss_ver,

@@ -9,7 +9,10 @@ operations, each a plain PyTorch version plus a wrapper that launches
 ``csrc/lr.cu`` on CUDA tensors (CPU tensors run the plain version):
 
 * :func:`wiener`: every Wiener unit of a plane (7-tap separable filter,
-  reference wiener_filter_h/v, src/looprestoration_tmpl.c:44-190);
+  reference wiener_filter_h/v, src/looprestoration_tmpl.c:44-190), one
+  kernel CTA per row of its chunk table (:func:`chunk_table`: a band of
+  output rows of a 64-column chunk of a unit, 64, 32 or 16 rows as the
+  launch's size asks; :func:`check_chunks`);
 * :func:`sgr`: every self-guided unit of a plane (variants 0 = 5x5
   only, 1 = 3x3 only, 2 = both; reference sgr_5x5_c / sgr_3x3_c /
   sgr_mix_c, src/looprestoration_tmpl.c:679-1090).
@@ -38,6 +41,15 @@ J_X, J_Y, J_UW, J_SH, J_EDGES, J_H, J_P = range(7)
 # the largest unit the kernels take: 1.5 units of 256 columns, a 64-row
 # stripe
 MAX_UW, MAX_SH = 384, 64
+# columns of a chunk row (csrc/lr_core.cuh): job, first column (in the
+# unit), first output row (in the unit), rows, then the job's row
+CHUNK_COLS = 4 + JOB_COLS
+C_JOB, C_X, C_R0, C_NR, C_ROW = range(5)
+# output columns of a Wiener chunk; the CTAs a launch should have at
+# least: two an SM of an H100 (132 SMs), so a small launch takes bands of
+# fewer rows
+WIENER_CW = 64
+WIENER_MIN_CTAS = 264
 
 
 def job_tables(geom: dict, pl: int):
@@ -60,6 +72,60 @@ def job_tables(geom: dict, pl: int):
             rows[kind].append([x, y, uw, sh, e, h, *params])
     return tuple(np.asarray(rows[k], np.int32).reshape(-1, JOB_COLS)
                  for k in "ws")
+
+
+def chunk_table(jobs, band: int = 0) -> np.ndarray:
+    """(n, CHUNK_COLS) int32: the Wiener kernel's CTAs for the job rows
+    ``jobs``, one per (job, WIENER_CW-column chunk, band of ``band``
+    output rows), each unit's chunks column by column, the bands of a
+    chunk top to bottom, each row followed by its job's row; the last
+    chunk and band of a unit hold what is left.  ``band`` 0: 64 (a whole
+    stripe a CTA) or 32, the larger that gives at least WIENER_MIN_CTAS
+    rows, else 16."""
+    J = np.asarray(jobs).reshape(-1, JOB_COLS)
+    uw, sh = J[:, J_UW].astype(np.int64), J[:, J_SH].astype(np.int64)
+    nx = -(-uw // WIENER_CW)
+    if not band:
+        band = next((b for b in (64, 32)
+                     if (nx * -(-sh // b)).sum() >= WIENER_MIN_CTAS), 16)
+    nb = -(-sh // band)
+    per = nx * nb
+    job = np.repeat(np.arange(len(J)), per)
+    k = np.arange(len(job)) - np.repeat(np.cumsum(per) - per, per)
+    r0 = (k % nb[job]) * band
+    head = np.stack([job, (k // nb[job]) * WIENER_CW, r0,
+                     np.minimum(band, sh[job] - r0)], 1)
+    return np.concatenate([head, J[job]], 1).astype(np.int32)
+
+
+def check_chunks(jobs, chunks) -> None:
+    """Raise unless ``chunks`` is a chunk table the Wiener kernel takes for
+    the job rows ``jobs``: every row names a job, a chunk's first column
+    (a multiple of WIENER_CW inside the unit) and a band of at least one
+    output row inside the stripe, carries its job's row, and the rows
+    cover every output pixel of every unit once (the kernel traps on a
+    row outside its unit)."""
+    J = np.asarray(jobs, dtype=np.int64).reshape(-1, JOB_COLS)
+    C = np.asarray(chunks, dtype=np.int64)
+    if C.ndim != 2 or C.shape[1] != CHUNK_COLS:
+        raise ValueError(f"chunks: shape {C.shape}, expected "
+                         f"(n, {CHUNK_COLS})")
+    job, cx, r0, nr = C[:, :C_ROW].T
+    if len(C) and (job.min() < 0 or job.max() >= len(J)):
+        raise ValueError("chunks: a job out of range")
+    if (C[:, C_ROW:] != J[job]).any():
+        raise ValueError("chunks: a job row that differs from the jobs")
+    uw, sh = J[job, J_UW], J[job, J_SH]
+    if ((cx < 0) | (cx >= uw) | (cx % WIENER_CW != 0) | (r0 < 0) | (nr < 1)
+            | (r0 + nr > sh)).any():
+        raise ValueError("chunks: a chunk outside its unit")
+    o = np.lexsort((r0, cx, job))
+    same = (job[o][1:] == job[o][:-1]) & (cx[o][1:] == cx[o][:-1])
+    if (same & (r0[o][1:] < (r0 + nr)[o][:-1])).any():
+        raise ValueError("chunks: two bands overlap")
+    need = (-(-J[:, J_UW] // WIENER_CW) * J[:, J_SH]).sum()
+    if nr.sum() != need:
+        raise ValueError(f"chunks: {nr.sum()} chunk rows for {need}")
 
 
 # ---- plain versions over batched padded units ----------------------------
@@ -209,7 +275,7 @@ def sgr_plain(post, pre, jobs, bitdepth, out=None):
 
 # ---- wrappers -------------------------------------------------------------
 
-def _restore(post, pre, jobs, bitdepth, out, sgr):
+def _restore(post, pre, jobs, bitdepth, out, sgr, chunks=None):
     H, W = post.shape
     build.check(post, "post")
     build.check(pre, "pre", (H, W))
@@ -223,29 +289,51 @@ def _restore(post, pre, jobs, bitdepth, out, sgr):
         build.check(out, "out", (H, W))
         if out.data_ptr() in (post.data_ptr(), pre.data_ptr()):
             raise ValueError("out aliases an input plane")
-    ts = (post, pre, jobs) + ((out,) if out is not None else ())
+    ts = (post, pre, jobs) + ((out,) if out is not None else ()) + \
+        ((chunks,) if chunks is not None else ())
+    if chunks is not None:
+        build.check(chunks, "chunks")
+        if chunks.data_ptr() % 16:
+            raise ValueError("chunks: not 16-byte aligned")
     if not build.on_cuda(*ts):
+        if chunks is not None:
+            check_chunks(jobs.numpy(), chunks.numpy())
         return _restore_plain(post, pre, jobs, bitdepth, out, sgr)
+    if not sgr and chunks is None:
+        raise ValueError("wiener on CUDA tensors needs the chunk table "
+                         "(chunks=)")
     out = post.clone() if out is None else out
     n = jobs.shape[0]
-    if n:
-        with torch.cuda.device(post.device):
-            devrt.launch("lr_sgr" if sgr else "lr_wiener",
-                         build.lib().dtpu_lr, post.data_ptr(),
+    if not n:
+        return out
+    with torch.cuda.device(post.device):
+        lib, st = build.lib(), build.stream(post)
+        if sgr:
+            devrt.launch("lr_sgr", lib.dtpu_lr_sgr, post.data_ptr(),
                          pre.data_ptr(), out.data_ptr(), H, W,
-                         jobs.data_ptr(), n, int(sgr), int(bitdepth),
-                         build.stream(post))
+                         jobs.data_ptr(), n, int(bitdepth), st)
+            return out
+        devrt.launch("lr_wiener", lib.dtpu_lr_wiener, post.data_ptr(),
+                     pre.data_ptr(), out.data_ptr(), H, W, chunks.data_ptr(),
+                     chunks.shape[0], int(bitdepth), st, keep=(chunks,))
     return out
 
 
 def wiener(post: torch.Tensor, pre: torch.Tensor, jobs: torch.Tensor,
-           bitdepth: int, out: torch.Tensor | None = None) -> torch.Tensor:
+           bitdepth: int, out: torch.Tensor | None = None,
+           chunks: torch.Tensor | None = None) -> torch.Tensor:
     """The Wiener units ``jobs`` ((n, JOB_COLS) int32, :func:`job_tables`)
     of the (H, W) int32 post-CDEF plane ``post`` with the pre-CDEF
     snapshot ``pre``, written into ``out`` (default: a clone of
-    ``post``), which is returned.  CPU tensors run the plain version;
-    CUDA tensors launch ``csrc/lr.cu``."""
-    return _restore(post, pre, jobs, bitdepth, out, False)
+    ``post``), which is returned.  ``chunks``: the kernel's schedule,
+    :func:`chunk_table` of the same job rows, as an int32 tensor; the
+    caller holds it against the jobs with :func:`check_chunks` before
+    the upload (recon/device_chain._lr does), since the kernel cannot:
+    a table that misses a band leaves ``post``'s pixels there.  CPU
+    tensors run the plain version (after :func:`check_chunks` when
+    ``chunks`` is given, which it need not be); CUDA tensors launch
+    ``csrc/lr.cu`` and need ``chunks``."""
+    return _restore(post, pre, jobs, bitdepth, out, False, chunks)
 
 
 def sgr(post: torch.Tensor, pre: torch.Tensor, jobs: torch.Tensor,

@@ -136,7 +136,8 @@ def _lr(f, dev, pre):
     """Loop restoration of the resident planes from the post-CDEF planes
     ``dev`` and the snapshot ``pre`` (reference recon/device_chain.py
     _lr_resident): per plane, the Wiener units and then the self-guided
-    units, written into one new plane."""
+    units, written into one new plane.  The job rows and the Wiener
+    kernel's chunk table go up in one copy."""
     geom = {}
     lr_frame(f, geom_sink=geom)
     dev = list(dev)
@@ -146,11 +147,17 @@ def _lr(f, dev, pre):
             continue
         devrt.COUNTS["lr_wiener_units"] += len(wj)
         devrt.COUNTS["lr_sgr_units"] += len(sj)
-        jobs = devrt.upload(np.concatenate([wj, sj]), dev[pl].device)
+        wc = olr.chunk_table(wj)
+        olr.check_chunks(wj, wc)
+        n = wj.size + sj.size
+        table = devrt.upload(np.concatenate([wj.ravel(), sj.ravel(),
+                                             wc.ravel()]), dev[pl].device)
+        jobs = table[:n].view(-1, olr.JOB_COLS)
         out = None
         if len(wj):
             out = devrt.call("lr_wiener", olr.wiener, dev[pl], pre[pl],
-                             jobs[:len(wj)], f.bitdepth)
+                             jobs[:len(wj)], f.bitdepth,
+                             chunks=table[n:].view(-1, olr.CHUNK_COLS))
         if len(sj):
             out = devrt.call("lr_sgr", olr.sgr, dev[pl], pre[pl],
                              jobs[len(wj):], f.bitdepth, out=out)

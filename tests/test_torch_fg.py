@@ -16,9 +16,14 @@ package and the port's native host tier, bit-exact.
   (recon/filmgrain._apply_grain_native): luma, chroma from luma, chroma
   with uv_mult, odd sizes, overlap on and off, restricted range, 8/10/12-
   bit;
-* the kernel's arithmetic, ``csrc/fg_core.cuh`` built as host C++ and
-  run pixel by pixel as the kernel's threads do, against the plain
-  version on the same planes (``-k host``), 12-bit extremes included.
+* the kernel's phases, ``csrc/fg_core.cuh`` built as host C++ and run
+  CTA by CTA as the kernel runs them (every thread's loads of its 4-pixel
+  groups, the scaling LUT's staging, every thread's grain and stores),
+  against the plain version on the same planes (``-k host``), 12-bit
+  extremes included, with 1, 2, 4 and 8 rows a thread; and on planes whose
+  rows are not 16-byte aligned (a row stride of w + 1, a ``src`` that
+  starts 1-3 columns into its allocation), where the ragged groups take
+  the scalar loads and stores.
 
 Tolerance: exact (integer codec)."""
 
@@ -250,23 +255,46 @@ def test_apply_grain_plain_device_path_matches_native():
 # ---- the kernel's arithmetic on the host ---------------------------------
 
 _HOST_SRC = r"""
+#include <string.h>
 #include "fg_core.cuh"
 
-// the kernel's loop (csrc/fg.cu fg_kernel), one pixel at a time
+// The kernel (csrc/fg.cu fg_kernel) CTA by CTA, each phase run by the
+// CTA's threads one after the other: every thread's loads, the scaling
+// LUT's staging, every thread's grain, index, scale and stores.
+template <bool CHROMA, int ROWS>
+static void run(const fg::Planes& pl, const int* lut, const int* scaling,
+                const int* offs, int n_blocks, const fg::Params& p) {
+    static fg::Regs<CHROMA, ROWS> r[fg::THREADS];
+    static short s_sc[4096];
+    const int nx = (pl.w + fg::GX * 4 - 1) / (fg::GX * 4);
+    const int ny = (pl.h + fg::GY * ROWS - 1) / (fg::GY * ROWS);
+    for (int by = 0; by < ny; by++)
+        for (int bx = 0; bx < nx; bx++) {
+            // registers and shared memory start undefined
+            memset(r, 0x5A, sizeof r);
+            memset(s_sc, 0x5A, sizeof s_sc);
+            for (int t = 0; t < fg::THREADS; t++)
+                fg::load(r[t], pl, offs, n_blocks, fg::group_x(bx, t),
+                         fg::group_y<ROWS>(by, t), p);
+            for (int t = 0; t < fg::THREADS; t++)
+                fg::stage_scaling(s_sc, scaling, p.bd, t, fg::THREADS);
+            for (int t = 0; t < fg::THREADS; t++)
+                fg::finish(r[t], s_sc, pl, lut, offs, n_blocks,
+                           fg::group_x(bx, t), fg::group_y<ROWS>(by, t), p);
+        }
+}
+
 extern "C" void fg_host(const int* src, long long ss, const int* luma,
                         long long ls, int lw, int* out, int w, int h,
                         const int* lut, const int* scaling, const int* offs,
                         int n_blocks, const int* prm) {
     const fg::Params p{prm[0], prm[1], prm[2], prm[3], prm[4], prm[5],
                        prm[6], prm[7], prm[8], prm[9], prm[10], prm[11]};
-    for (int y = 0; y < h; y++)
-        for (int x = 0; x < w; x++) {
-            const int s = src[(long long)y * ss + x];
-            const int g = fg::grain(lut, offs, n_blocks, x, y, p);
-            const int idx = fg::index(s, luma, ls, lw, x, y, p);
-            out[(long long)y * w + x] = fg::apply(s, (short)scaling[idx],
-                                                  g, p);
-        }
+    const fg::Planes pl{src, ss, luma, ls, lw, out, w, h};
+    if (p.pl)
+        run<true, fg::ROWS_CHROMA>(pl, lut, scaling, offs, n_blocks, p);
+    else
+        run<false, fg::ROWS_LUMA>(pl, lut, scaling, offs, n_blocks, p);
 }
 """
 
@@ -291,6 +319,25 @@ def kernel_on_host(tmp_path_factory):
     return lib
 
 
+def _host_planes(lib, pic, tabs, prm, offs, planes=None):
+    """Every plane with grain through the host build; ``planes``: the
+    int32 (possibly strided) views to read, default pic.planes."""
+    planes = pic.planes if planes is None else planes
+    luma = planes[0]
+    o = np.ascontiguousarray(offs.numpy())
+    out = {}
+    for pl, (lut, sc) in tabs.items():
+        src = planes[pl]
+        h, w = src.shape
+        out[pl] = np.zeros((h, w), np.int32)
+        ints = (ctypes.c_int * tfg.N_PARAMS)(*prm[pl].ints())
+        lib.fg_host(src.ctypes.data, src.strides[0] // 4, luma.ctypes.data,
+                    luma.strides[0] // 4, pic.width, out[pl].ctypes.data, w,
+                    h, lut.ctypes.data, sc.ctypes.data, o.ctypes.data,
+                    o.shape[1], ints)
+    return out
+
+
 @pytest.mark.parametrize("pixels", ["random", "extremes"])
 @pytest.mark.parametrize("bitdepth", [8, 10, 12])
 @pytest.mark.parametrize("case", range(len(PLANES)))
@@ -299,17 +346,61 @@ def test_kernel_source_on_host(kernel_on_host, case, bitdepth, pixels):
     pic = _picture(rng, *PLANES[case][:3], bitdepth, *PLANES[case][3:],
                    pixels=pixels)
     want, tabs, prm, offs = _plain_planes(pic)
-    luma = pic.planes[0]
-    o = np.ascontiguousarray(offs.numpy())
-    for pl, (lut, sc) in tabs.items():
-        src = pic.planes[pl]
-        h, w = src.shape
-        out = np.zeros((h, w), np.int32)
-        ints = (ctypes.c_int * tfg.N_PARAMS)(*prm[pl].ints())
-        kernel_on_host.fg_host(src.ctypes.data, src.shape[1],
-                               luma.ctypes.data, luma.shape[1], pic.width,
-                               out.ctypes.data, w, h, lut.ctypes.data,
-                               sc.ctypes.data, o.ctypes.data, o.shape[1],
-                               ints)
-        np.testing.assert_array_equal(out, want[pl], err_msg=f"pl {pl}")
+    got = _host_planes(kernel_on_host, pic, tabs, prm, offs)
+    for pl in tabs:
+        np.testing.assert_array_equal(got[pl], want[pl], err_msg=f"pl {pl}")
 
+
+def _embed(a, extra, col):
+    """``a`` as a view ``col`` columns into an allocation ``extra``
+    columns wider (junk around it)."""
+    h, w = a.shape
+    big = np.full((h, w + extra), 12345, np.int32)
+    big[:, col:col + w] = a
+    return big[:, col:col + w]
+
+
+def _groups(planes, pl, w, h):
+    """(whole 16-byte-aligned groups, ragged groups) of plane ``pl`` as the
+    kernel's loads see them."""
+    a = planes[pl]
+    base, ss = a.ctypes.data, a.strides[0]
+    x0 = np.arange(0, w, 4)
+    addr = base + np.arange(h)[:, None] * ss + x0[None, :] * 4
+    whole = (addr % 16 == 0) & (x0 + 4 <= w)[None, :]
+    return int(whole.sum()), int((~whole).sum())
+
+
+# (PLANES case, extra allocation columns, first column): a row stride of
+# w + 1 (odd widths: rows 16-byte aligned one in four), a src 1-3 columns
+# into its allocation; where every plane's stride w + extra is a multiple
+# of 4 words ((3, 2, *), (4, 5, 3), (1, 4, 2), (2, 3, 3)) and the src
+# starts 1-3 columns in, no row is 16-byte aligned
+RAGGED = [(0, 1, 0), (1, 1, 0), (2, 3, 1), (3, 2, 2), (4, 5, 3), (0, 3, 3),
+          (3, 2, 1), (1, 4, 2), (2, 3, 3)]
+
+
+@pytest.mark.parametrize("bitdepth", [8, 10, 12])
+@pytest.mark.parametrize("case", range(len(RAGGED)))
+def test_kernel_ragged_on_host(kernel_on_host, case, bitdepth):
+    """Planes whose rows are not all 16-byte aligned: the whole groups of
+    aligned rows take the 16-byte loads and stores, the rest the scalar
+    path; both equal the plain version through the same strided views."""
+    k, extra, col = RAGGED[case]
+    rng = np.random.default_rng(case * 7 + bitdepth)
+    pic = _picture(rng, *PLANES[k][:3], bitdepth, *PLANES[k][3:])
+    views = [_embed(a, extra, col) for a in pic.planes]
+    want, tabs, prm, offs = _plain_planes(pic)
+    luma = torch.from_numpy(views[0])
+    for pl, (lut, sc) in tabs.items():
+        h, w = pic.planes[pl].shape
+        plain = tfg.apply_plane(torch.from_numpy(views[pl]), luma,
+                                torch.from_numpy(lut), torch.from_numpy(sc),
+                                offs, w, h, pic.width, prm[pl])
+        np.testing.assert_array_equal(plain.numpy(), want[pl])
+        whole, ragged = _groups(views, pl, w, h)
+        aligned_rows = (col + np.arange(h) * (w + extra)) % 4 == 0
+        assert ragged > 0 and (whole > 0) == (aligned_rows.any() and w >= 4)
+    got = _host_planes(kernel_on_host, pic, tabs, prm, offs, views)
+    for pl in tabs:
+        np.testing.assert_array_equal(got[pl], want[pl], err_msg=f"pl {pl}")

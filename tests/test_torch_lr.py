@@ -17,12 +17,23 @@ bit-exact.
   CDEF, resize) also return new tensors, which is what lets the chain
   keep its pre-CDEF snapshot as references (recon/device_chain.py);
 * the kernels' own arithmetic, ``csrc/lr_core.cuh`` built as host C++
-  and run chunk by chunk, 256 threads in turn per phase, against the
-  plain group functions on job tables with the stream's unit sizes (uw
-  128/192/256/384, stripe heights 28/32/56/64, several chunks a unit)
-  and every edge combination, at 8/10/12-bit, the 12-bit self-guided
-  case on extreme pixels, where its two products need int64; the
-  header's x_by_x table against tables.sgr_x_by_x.
+  and run CTA by CTA, 256 threads in turn per phase (the Wiener kernel:
+  a CTA per chunk table row, its row and column tables, then sub-band
+  by sub-band the copies, the horizontal pass into the ring and the
+  vertical pass out of it), against the plain group functions on job
+  tables with the stream's unit sizes (uw 128/192/256/384, stripe
+  heights 28/32/56/64, several chunks a unit) and every edge
+  combination, at 8/10/12-bit, the 12-bit self-guided case on extreme
+  pixels, where its two products need int64; the Wiener kernel also
+  with bands of 64, 32, 16, 13 and 5 rows and sub-bands of 16 and 32
+  rows,
+  on units narrower than a 16-byte copy (1-3 columns) or a chunk (37,
+  65) and stripes of 4, 13 and 28 rows, on planes whose rows take the
+  16-byte copies and on a plane whose rows do not; the header's x_by_x
+  table against tables.sgr_x_by_x;
+* the chunk table (:func:`chunk_table`) covers every output pixel once,
+  and :func:`check_chunks` refuses malformed tables (also through the
+  wrapper on CPU tensors).
 
 The plain versions are what the wrappers run on CPU tensors; the CUDA
 kernels are compared with them on the card by chip_smoke.py.
@@ -304,38 +315,60 @@ _HARNESS = r"""
 #include <string.h>
 #include "lr_core.cuh"
 
-// The kernels' CTAs in turn: every job, every chunk, each phase run by
-// 256 threads one after the other.
-extern "C" void lr_host(const int* post, const int* pre, int* out, int H,
-                        int W, const int* jobs, int n_jobs, int sgr,
-                        int bitdepth) {
-    static lr::WienerTile ws;
+// The Wiener kernel (csrc/lr.cu lr_wiener_kernel) CTA by CTA, each phase
+// between two barriers run by the 256 threads one after the other (the
+// copies land at once here); counts[0] += bands staged by 16-byte copies,
+// counts[1] += the others.
+static void wiener(const lr::Planes& p, const int* chunks, int n_chunks,
+                   int* counts) {
+    static lr::WienerRing s;
+    const int nt = lr::WIENER_THREADS;
+    for (int ci = 0; ci < n_chunks; ci++) {
+        lr::Band b;
+        lr::load_band(b, chunks, ci, p);
+        counts[b.vec ? 0 : 1]++;
+        memset(&s, 0x5A, sizeof s);  // shared memory starts undefined
+        for (int t = 0; t < nt; t++) lr::wiener_setup(s, b, p, t);
+        for (int t = 0; t < nt; t++) lr::wiener_issue(s, b, 0, t);
+        for (int t = 0; t < nt; t++) lr::wiener_issue(s, b, 1, t);
+        for (int g = 0; g < lr::sub_bands(b); g++) {
+            for (int t = 0; t < nt; t++) lr::wiener_hpass(s, b, g, p.bd, t);
+            for (int t = 0; t < nt; t++) lr::wiener_issue(s, b, g + 2, t);
+            for (int t = 0; t < nt; t++) lr::wiener_vpass(s, b, g, p, t);
+        }
+    }
+}
+
+// The self-guided kernel's CTAs in turn: every job, every chunk, each
+// phase run by 256 threads one after the other.
+static void sgr(const lr::Planes& p, const int* jobs, int n_jobs) {
     static lr::SgrTile ss;
-    const lr::Planes p{post, pre, out, H, W, bitdepth};
     const int nt = 256;
-    const int cw = sgr ? lr::SGR_CW : lr::WIENER_CW;
     for (int b = 0; b < n_jobs; b++)
-        for (int chunk = 0; chunk < lr::MAX_UW / cw; chunk++) {
+        for (int chunk = 0; chunk < lr::MAX_UW / lr::SGR_CW; chunk++) {
             lr::Job j;
-            if (!lr::load_job(j, jobs + b * lr::JOB_COLS, chunk, cw))
+            if (!lr::load_job(j, jobs + b * lr::JOB_COLS, chunk, lr::SGR_CW))
                 continue;
-            memset(&ws, 0x5A, sizeof ws);  // shared memory starts undefined
             memset(&ss, 0x5A, sizeof ss);
-            if (sgr) {
-                for (int t = 0; t < nt; t++)
-                    lr::stage(ss.win, lr::SGR_WS, j, p, t, nt);
-                for (int t = 0; t < nt; t++)
-                    lr::sgr_ab(ss, j, bitdepth, t, nt);
-                for (int t = 0; t < nt; t++) lr::sgr_filter(ss, j, p, t, nt);
-            } else {
-                for (int t = 0; t < nt; t++)
-                    lr::stage(ws.win, lr::WIENER_CW + 6, j, p, t, nt);
-                for (int t = 0; t < nt; t++)
-                    lr::wiener_h(ws, j, bitdepth, t, nt);
-                for (int t = 0; t < nt; t++) lr::wiener_v(ws, j, p, t, nt);
-            }
+            for (int t = 0; t < nt; t++)
+                lr::stage(ss.win, lr::SGR_WS, j, p, t, nt);
+            for (int t = 0; t < nt; t++) lr::sgr_ab(ss, j, p.bd, t, nt);
+            for (int t = 0; t < nt; t++) lr::sgr_filter(ss, j, p, t, nt);
         }
 }
+
+extern "C" void lr_host(const int* post, const int* pre, int* out, int H,
+                        int W, const int* jobs, int n_jobs,
+                        const int* chunks, int n_chunks, int sgr_,
+                        int bitdepth, int* counts) {
+    const lr::Planes p{post, pre, out, H, W, bitdepth};
+    if (sgr_)
+        sgr(p, jobs, n_jobs);
+    else
+        wiener(p, chunks, n_chunks, counts);
+}
+
+extern "C" int lr_ring_bytes() { return (int)sizeof(lr::WienerRing); }
 
 extern "C" const int* lr_x_by_x_host() { return lr::X_BY_X; }
 """
@@ -357,7 +390,7 @@ def kernel_on_host(tmp_path_factory):
     assert r.returncode == 0, r.stderr[-3000:]
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.lr_host.argtypes = [P, P, P, I, I, P, I, I, I]
+    lib.lr_host.argtypes = [P, P, P, I, I, P, I, P, I, I, I, P]
     lib.lr_host.restype = None
     lib.lr_x_by_x_host.restype = ctypes.POINTER(ctypes.c_int)
     return lib
@@ -401,9 +434,162 @@ def test_kernel_source_on_host(kernel_on_host, kind, bitdepth, content):
     plain = tlr.wiener_plain if kind == "wiener" else tlr.sgr_plain
     want = plain(torch.from_numpy(post), torch.from_numpy(pre),
                  torch.from_numpy(jobs), bitdepth).numpy()
-    got = post.copy()
-    kernel_on_host.lr_host(post.ctypes.data, pre.ctypes.data,
-                           got.ctypes.data, H, W, jobs.ctypes.data, n,
-                           int(kind != "wiener"), bitdepth)
+    got = _on_host(kernel_on_host, post, pre, jobs, bitdepth,
+                   kind != "wiener")[0]
     np.testing.assert_array_equal(got, want)
     assert (want != post).any()
+
+
+def _on_host(lib, post, pre, jobs, bitdepth, sgr=False, band=0):
+    """The host build over the job table (Wiener: its chunk table of
+    ``band``-row bands, 0 as the wrapper chooses them), into a copy of
+    ``post``; returns (plane, [bands staged by 16-byte copies, other
+    bands])."""
+    H, W = post.shape
+    chunks = tlr.chunk_table(jobs, band)
+    tlr.check_chunks(jobs, chunks)
+    counts = np.zeros(2, np.int32)
+    got = post.copy()
+    lib.lr_host(post.ctypes.data, pre.ctypes.data, got.ctypes.data, H, W,
+                jobs.ctypes.data, len(jobs), chunks.ctypes.data,
+                len(chunks), int(sgr), bitdepth, counts.ctypes.data)
+    return got, counts.tolist()
+
+
+# units narrower than a 16-byte copy or a chunk, stripes that are not a
+# multiple of a band, beside the stream's sizes; each in 4 of the 16
+# edge combinations
+NARROW_UNITS = [(uw, sh, (5 * i + k) % 16)
+                for i, (uw, sh) in enumerate([(1, 13), (2, 4), (3, 28),
+                                              (37, 13), (65, 28), (128, 4),
+                                              (192, 64), (384, 13)])
+                for k in range(0, 16, 4)]
+
+
+@pytest.mark.parametrize("band", [64, 32, 16, 13, 7, 5, 1])
+@pytest.mark.parametrize("bitdepth,content", [(8, "smooth"),
+                                              (10, "random"),
+                                              (12, "extremes")])
+@pytest.mark.parametrize("W", [1000, 998])
+def test_wiener_bands_on_host(kernel_on_host, W, bitdepth, content, band):
+    """The Wiener kernel with bands of ``band`` rows (one to three
+    sub-bands) equals the plain group function, exactly, on narrow units
+    and short stripes.  W = 1000: the interior chunks take the 16-byte
+    copies, the clamped ones the element copies; W = 998: rows not
+    16-byte aligned, element copies only."""
+    rng = np.random.default_rng(W + bitdepth + band * 3)
+    geo, H = _grid(rng, NARROW_UNITS, W)
+    post = _pixels(rng, (H, W), bitdepth, content)
+    pre = _pixels(rng, (H, W), bitdepth, content)
+    assert post.ctypes.data % 16 == 0 and pre.ctypes.data % 16 == 0
+    n = len(geo)
+    jobs = _jobs(rng, geo, np.concatenate([_wiener_filters(rng, n),
+                                           _wiener_filters(rng, n)], 1))
+    want = tlr.wiener_plain(torch.from_numpy(post), torch.from_numpy(pre),
+                            torch.from_numpy(jobs), bitdepth).numpy()
+    got, (vec, other) = _on_host(kernel_on_host, post, pre, jobs, bitdepth,
+                                 band=band)
+    np.testing.assert_array_equal(got, want)
+    assert other > 0 and (vec > 0) == (W % 4 == 0)
+
+
+def test_wiener_ring_bytes_on_host(kernel_on_host):
+    """The Wiener CTA's shared memory (csrc/lr.cu's note): 30,024 bytes
+    with sub-bands of 32 rows, against the 37,520 of the stage-then-filter
+    tile."""
+    assert kernel_on_host.lr_ring_bytes() == 30024
+
+
+def test_wiener_on_cuda_needs_chunks(monkeypatch):
+    """On CUDA tensors the wrapper takes its chunk table from the caller
+    (who checked it against the jobs) and refuses to run without one; the
+    device test is stubbed so that this runs without a card."""
+    jobs = torch.from_numpy(_chunk_jobs())
+    post = torch.zeros((100, 400), dtype=torch.int32)
+    monkeypatch.setattr(tlr.build, "on_cuda", lambda *ts: True)
+    with pytest.raises(ValueError, match="chunk table"):
+        tlr.wiener(post, post.clone(), jobs, 8)
+
+
+# ---- the chunk table -----------------------------------------------------
+
+def _chunk_jobs():
+    geo = np.array([[0, 0, 128, 64, 15, 100], [200, 0, 37, 13, 0, 100],
+                    [0, 70, 384, 28, 3, 100]])
+    return _jobs(None, geo, np.zeros((3, 6), np.int64))
+
+
+def test_chunk_table_band_by_launch_size():
+    """Band 0 takes 64-row bands while they give WIENER_MIN_CTAS CTAs,
+    then 32, then 16: a small launch gets more, shorter CTAs."""
+    one = _chunk_jobs()[:1]  # a 128 x 64 unit: 2 chunks
+    for n, band in ((132, 64), (131, 32), (66, 32), (65, 16), (1, 16)):
+        c = tlr.chunk_table(np.repeat(one, n, 0))
+        assert c[:, tlr.C_NR].max() == band, (n, band)
+        assert len(c) == n * 2 * (64 // band)
+
+
+@pytest.mark.parametrize("band", [64, 32, 16, 13, 1])
+def test_chunk_table(band):
+    """One row per (unit, 64-column chunk, band), covering every output
+    pixel of every unit once."""
+    jobs = _chunk_jobs()
+    c = tlr.chunk_table(jobs, band)
+    tlr.check_chunks(jobs, c)
+    assert c.dtype == np.int32 and c.shape[1] == tlr.CHUNK_COLS
+    cover = np.zeros((3, 64, 384), np.int32)
+    np.testing.assert_array_equal(c[:, tlr.C_ROW:], jobs[c[:, tlr.C_JOB]])
+    for job, cx, r0, nr in c[:, :tlr.C_ROW].tolist():
+        cw = min(64, jobs[job, tlr.J_UW] - cx)
+        cover[job, r0:r0 + nr, cx:cx + cw] += 1
+    for j, (uw, sh) in enumerate(jobs[:, [tlr.J_UW, tlr.J_SH]].tolist()):
+        assert (cover[j, :sh, :uw] == 1).all()
+        assert cover[j].sum() == uw * sh
+    n_chunks = [2, 1, 6]
+    assert len(c) == sum(k * -(-sh // band) for k, sh in
+                         zip(n_chunks, jobs[:, tlr.J_SH]))
+    assert tlr.chunk_table(jobs[:0], band).shape == (0, tlr.CHUNK_COLS)
+
+
+def _broken(c, how):
+    c = c.copy()
+    if how == "job":
+        c[0, tlr.C_JOB] = 3
+    elif how == "negative job":
+        c[0, tlr.C_JOB] = -1
+    elif how == "column":
+        c[0, tlr.C_X] = 32
+    elif how == "past the unit":
+        c[1, tlr.C_X] = 128
+    elif how == "no rows":
+        c[0, tlr.C_NR] = 0
+    elif how == "past the stripe":
+        c[0, tlr.C_NR] += 1
+    elif how == "overlap":
+        c[1, tlr.C_R0] -= 1
+    elif how == "missing":
+        c = c[1:]
+    elif how == "twice":
+        c = np.concatenate([c, c[:1]])
+    elif how == "shape":
+        c = c[:, :3]
+    elif how == "job row":
+        c[0, tlr.C_ROW + tlr.J_UW] += 64
+    return c
+
+
+@pytest.mark.parametrize("how", ["job", "negative job", "column",
+                                 "past the unit", "no rows",
+                                 "past the stripe", "overlap", "missing",
+                                 "twice", "shape", "job row"])
+def test_check_chunks_refuses(how):
+    """check_chunks refuses a table the kernel would trap on or that
+    misses or repeats pixels, and so does the wrapper on CPU tensors."""
+    jobs = _chunk_jobs()
+    bad = _broken(tlr.chunk_table(jobs, 16), how)
+    with pytest.raises(ValueError, match="chunks"):
+        tlr.check_chunks(jobs, bad)
+    post = torch.zeros((100, 400), dtype=torch.int32)
+    with pytest.raises(ValueError, match="chunks"):
+        tlr.wiener(post, post.clone(), torch.from_numpy(jobs), 8,
+                   chunks=torch.from_numpy(np.ascontiguousarray(bad)))
