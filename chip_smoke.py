@@ -18,8 +18,8 @@ Phases; any failure exits non-zero:
    and, at the same time, the port's native C (cc, native/); print
    ptxas's registers and spills, the itx kernel's registers, shared
    memory and resident CTAs per SM at 8/10 and 12-bit, and the
-   registers and shared memory of the fg (luma, chroma), lr_wiener and
-   lr_sgr kernels;
+   registers and shared memory of the fg (luma, chroma), lr_wiener,
+   lr_sgr and resize kernels (resize also its CTAs per SM);
 3. hold each kernel against its plain PyTorch version on the card,
    exactly, at the decoder's 1080p shapes (4:2:0 luma and chroma planes,
    random edge/unit maps with every class present; CDEF also on flat
@@ -35,16 +35,20 @@ Phases; any failure exits non-zero:
    shuffled, in an arena with gaps, and sparse ones: zero rows between
    nonzero rows, a lone coefficient in the last column of the last
    coded row, DC only, partly full groups; the direction search also on
-   a plane of blocks whose costs tie; the super-res resample at the
-   1080p super-res stream's luma and chroma geometry (960 -> 1920,
-   480 -> 960) on random and extreme pixels, junk in the rows beyond the
-   frame; the Wiener and self-guided (variants 0, 1, 2) units on job
-   tables at the 1080p planes with unit widths 128/192/256/384 and
-   stripe heights 28/32/56/64 in all 16 edge combinations, on blocky
-   planes and on the pixels {0, 1, 2^bd-2, 2^bd-1}, where the
-   self-guided products are largest, and the Wiener units also on units
-   narrower than a 16-byte copy or a 64-column chunk (1, 2, 3, 37, 65
-   columns) on stripes of 4, 13 and 28 rows; film grain (fg) on every
+   a plane of blocks whose costs tie; the super-res resample one plane a
+   launch at the 1080p super-res stream's luma and chroma geometry
+   (denominator 16: 960 -> 1920, 480 -> 960) on random and extreme
+   pixels and at denominators 9 and 12, and the frame's three planes with
+   its snapshot's in one launch, junk in the rows beyond the frame and
+   the columns beyond the coded width; the Wiener and self-guided
+   (variants 0, 1, 2) units on job tables at the 1080p planes with unit
+   widths 128/192/256/384 and stripe heights 28/32/56/64 in all 16 edge
+   combinations, on blocky planes and on the pixels {0, 1, 2^bd-2,
+   2^bd-1}, where the self-guided products are largest, each through its
+   chunk table with the wrapper's bands and with forced bands (Wiener 64
+   rows, self-guided 8), and both also on units narrower than a 16-byte
+   copy or a chunk (1, 2, 3, 37, 65 columns) on stripes of 4, 13 and 28
+   rows; film grain (fg) on every
    plane of 1080p 4:2:0 pictures with random grain parameters: luma,
    chroma with uv_mult, chroma from luma, overlap on and off, the
    restricted range, an odd 1919x1079 picture, junk beyond it in the
@@ -70,7 +74,8 @@ Phases; any failure exits non-zero:
    filter-chain kernel must have launched at least once per frame, the
    itx and direction kernels exactly once per frame and the MC kernel at
    least once per inter frame; on the restoration streams, frame by
-   frame, the resize kernel on every super-res frame, the Wiener kernel
+   frame, the resize kernel exactly once on every super-res frame (the
+   frame's planes and the snapshot's in one launch), the Wiener kernel
    on every frame with Wiener units, the self-guided kernel on the frame
    with self-guided units, and on every frame with super-res or
    restoration one upload of planes (the reconstructed ones) and no
@@ -101,11 +106,15 @@ Phases; any failure exits non-zero:
    luma case of phase 3, the CDEF filter on the decode's largest luma
    call, MC on the largest captured frame, itx on two calls (the one
    with the most jobs, the key frame's, and the inter call with the
-   most 64x64 jobs); time the bare
-   launches of the C entry point on the same input, queued behind a spin
-   kernel so that the card runs them back to back (``launch_ms``: device
-   time, where the wrapper's ``ms`` also holds its host work), with the
-   registers and shared memory of fg, lr_wiener and lr_sgr beside them;
+   most 64x64 jobs), resize on the super-res decode's frame call (six
+   planes), on that call's luma plane alone and on a denominator-9 luma
+   plane, the self-guided kernel on the decode's 16-unit call; time the
+   bare launches of the C entry point on the same input, queued behind a
+   spin kernel so that the card runs them back to back (``launch_ms``:
+   device time, where the wrapper's ``ms`` also holds its host work),
+   with the registers and shared memory of fg, lr_wiener, lr_sgr and
+   resize beside them, and an empty kernel's launch, the floor under
+   them all;
    and compute each kernel's bound, the least time the card could take for
    the same inputs (bytes over 3.35 TB/s or 32-bit operations over 67
    Tops/s, whichever is larger), and its share, bound over launch
@@ -513,14 +522,39 @@ def _dir_ties(rng, H, W, bitdepth):
     return plane.reshape(nby * 8, nbx * 8)[:H, :W].astype(np.int32)
 
 
-def _sr_frame():
-    """The attributes decode/frame.superres_geometry reads, as the frames
-    of the 1080p super-res stream have them: 4:2:0, coded 960 wide
-    (bw = 240 4-px columns), upscaled to 1920."""
+def _sr_frame(denom=16):
+    """The attributes decode/frame.superres_geometry reads, for a 1080p
+    4:2:0 frame upscaled to 1920 from the super-res denominator ``denom``
+    (9-16; obu.py: w0 = (1920 * 8 + denom // 2) // denom): 16 is the 1080p
+    super-res stream's, coded 960 wide (bw = 240 4-px columns)."""
     from types import SimpleNamespace
 
-    hdr = SimpleNamespace(width=(960, 1920), height=1080)
-    return SimpleNamespace(frame_hdr=hdr, ss_hor=1, ss_ver=1, bw=240)
+    w0 = (1920 * 8 + (denom >> 1)) // denom
+    hdr = SimpleNamespace(width=(w0, 1920), height=1080)
+    return SimpleNamespace(frame_hdr=hdr, ss_hor=1, ss_ver=1,
+                           bw=((w0 + 7) >> 3) << 1)
+
+
+def _sr_planes(rng, shapes, bd, denom=16, makes=None):
+    """A frame's three planes and, with two ``makes``, its snapshot's as
+    the device chain resizes them: (planes, geometries); each plane
+    (H, W) with the shapes' rows and its coded width rounded up to 64
+    columns, junk (2^20) in the rows from h and the columns from src_w."""
+    import numpy as np
+
+    from dav1d_tpu_torch.decode.frame import superres_geometry
+
+    planes, geoms = [], []
+    for make in makes or (_plane,):
+        for pl in range(3):
+            g = superres_geometry(_sr_frame(denom), pl)
+            H = shapes["luma" if pl == 0 else "chroma"][0]
+            src_w, h = g[1], g[4]
+            px = np.full((H, (src_w + 63) & ~63), 1 << 20, np.int32)
+            px[:h, :src_w] = make(rng, h, src_w, bd)
+            planes.append(px)
+            geoms.append(g)
+    return planes, geoms
 
 
 def _extremes(rng, H, W, bitdepth):
@@ -887,7 +921,6 @@ def make_cases(device, shapes=SHAPES, seed=0):
     import numpy as np
     import torch
 
-    from dav1d_tpu_torch.decode.frame import superres_geometry
     from dav1d_tpu_torch.ops import cdef as ocdef
     from dav1d_tpu_torch.ops import itx as oitx
     from dav1d_tpu_torch.ops import lf as olf
@@ -968,17 +1001,27 @@ def make_cases(device, shapes=SHAPES, seed=0):
         cases["itx"].append((
             f"194 pairs x 44 sparse bd{bd}", oitx.itx_frame,
             _itx_plain, _itx_sparse_args(rng, device, bd)))
-        # super-res: the coded planes (rows beyond the frame hold junk)
-        for pl, kind in ((0, "luma"), (1, "chroma")):
-            geo = superres_geometry(_sr_frame(), pl)
-            H, h, src_w = shapes[kind][0], geo[4], geo[1]
-            for label, px in (("", _plane(rng, H, src_w, bd)),
-                              (" extremes", _extremes(rng, H, src_w, bd))):
-                px[h:] = 1 << 20
-                cases["resize"].append((
-                    f"{kind} {src_w}->{geo[0]}{label} bd{bd}",
-                    oresize.resize_plane, oresize.resize_plane_plain,
-                    (dev(px), *geo, bd)))
+        # super-res: one plane a launch at the stream's denominator (16)
+        # and at 9 and 12 (a phase for up to every lane of a warp), on
+        # random and extreme pixels; the frame's three planes and its
+        # snapshot's in one launch, as the device chain makes it; junk in
+        # the rows beyond the frame and the columns beyond the coded width
+        for denom, makes in ((16, (_plane, _extremes)), (9, (_plane,)),
+                             (12, (_plane,))):
+            for make in makes:
+                planes, geoms = _sr_planes(rng, shapes, bd, denom, (make,))
+                for kind, px, g in (("luma", planes[0], geoms[0]),
+                                    ("chroma", planes[1], geoms[1])):
+                    cases["resize"].append((
+                        f"{kind} {g[1]}->{g[0]} 1/{denom}"
+                        f"{' extremes' if make is _extremes else ''} bd{bd}",
+                        oresize.resize_plane, oresize.resize_plane_plain,
+                        (dev(px), *g, bd)))
+        planes, geoms = _sr_planes(rng, shapes, bd, 16, (_plane, _extremes))
+        cases["resize"].append((
+            f"6 planes (frame and snapshot) 1/16 bd{bd}",
+            oresize.resize_planes, oresize.resize_planes_plain,
+            ([dev(p) for p in planes], geoms, bd)))
         # restoration: the planes' post-CDEF pixels and snapshot
         for kind in ("luma", "chroma"):
             H, W, h, _ = shapes[kind]
@@ -996,12 +1039,20 @@ def make_cases(device, shapes=SHAPES, seed=0):
                         functools.partial(olr.wiener, chunks=dev(
                             olr.chunk_table(jobs, band))), olr.wiener_plain,
                         (post, pre, dev(jobs), bd)))
+                # (bands as the wrapper chooses them, and 8-row bands)
                 for variant in (0, 1, 2):
-                    jobs, _ = _lr_jobs(rng, W, h, per, "s", variant)
-                    cases["lr_sgr"].append((
-                        f"{kind} {len(jobs)} units variant {variant}{label} "
-                        f"bd{bd}", olr.sgr, olr.sgr_plain,
-                        (post, pre, dev(jobs), bd)))
+                    for what, sizes, band in (("", None, 0),
+                                              (" 8-row bands", None, 8),
+                                              (" narrow/short", LR_NARROW,
+                                               0)):
+                        jobs, _ = _lr_jobs(rng, W, h, per, "s", variant,
+                                           sizes=sizes)
+                        cases["lr_sgr"].append((
+                            f"{kind} {len(jobs)}{what} units variant "
+                            f"{variant}{label} bd{bd}",
+                            functools.partial(olr.sgr, chunks=dev(
+                                olr.chunk_table(jobs, band, sgr=True))),
+                            olr.sgr_plain, (post, pre, dev(jobs), bd)))
         cases["fg"] += _fg_cases(rng, device, bd, shapes)
         for k, items in _ipred_cases(rng, device, bd, shapes).items():
             cases[k] += items
@@ -1011,7 +1062,8 @@ def make_cases(device, shapes=SHAPES, seed=0):
 def _max_abs_err(a, b):
     import torch
 
-    if isinstance(a, tuple):
+    if isinstance(a, (tuple, list)):
+        _require(len(a) == len(b), f"{len(a)} outputs vs {len(b)}")
         return max(_max_abs_err(x, y) for x, y in zip(a, b))
     _require(a.shape == b.shape and a.dtype == b.dtype,
              f"shape/dtype {tuple(a.shape)} {a.dtype} vs "
@@ -1356,11 +1408,17 @@ def work(name, args):
     if name == "itx":
         return _itx_work(*args)
     if name == "resize":
-        plane, out_w, src_w, _, _, h, alloc_w, _ = args
-        # reads: the source rectangle; writes: the whole output plane;
+        # one plane (resize_plane's arguments) or a batch (resize_planes'):
+        # reads: each source rectangle; writes: each whole output plane;
         # per resampled pixel 8 multiply-adds (16), the rounding shift and
         # the clip (3)
-        return 4 * (h * src_w + plane.shape[0] * alloc_w), 19 * h * out_w
+        batch = (zip(args[0], args[1]) if isinstance(args[0], (list, tuple))
+                 else [(args[0], args[1:7])])
+        nbytes = ops = 0
+        for plane, (out_w, src_w, _, _, h, alloc_w) in batch:
+            nbytes += 4 * (h * src_w + plane.shape[0] * alloc_w)
+            ops += 19 * h * out_w
+        return nbytes, ops
     if name in ("lr_wiener", "lr_sgr"):
         return _lr_work(name, args[2])
     if name == "fg":
@@ -1499,15 +1557,18 @@ def itx_occupancy():
 
 
 def restore_grain_attrs():
-    """Registers and static shared bytes of the fg (luma and chroma),
-    lr_wiener and lr_sgr kernels (cudaFuncGetAttributes): {name: {...}}."""
+    """Registers and shared bytes of the fg (luma and chroma), lr_wiener,
+    lr_sgr and resize kernels (cudaFuncGetAttributes: static shared
+    memory, for resize plus its dynamic shared memory and its resident
+    CTAs per SM): {name: {...}}."""
     import ctypes
 
     from dav1d_tpu_torch.kernels import build
 
     lib = build.lib()
-    f, w = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
-    for fn, v in ((lib.dtpu_fg_attrs, f), (lib.dtpu_lr_attrs, w)):
+    f, w, r = (ctypes.c_int * 4)(), (ctypes.c_int * 4)(), (ctypes.c_int * 3)()
+    for fn, v in ((lib.dtpu_fg_attrs, f), (lib.dtpu_lr_attrs, w),
+                  (lib.dtpu_resize_attrs, r)):
         rc = fn(v)
         _require(rc == 0, f"kernel attributes: {build.error_string(rc)}")
     luma = {"registers": f[0], "shared_bytes": f[1]}
@@ -1515,7 +1576,9 @@ def restore_grain_attrs():
     return {"fg": {"registers": max(f[0], f[2]), "shared_bytes": f[1],
                    "luma": luma, "chroma": chroma},
             "lr_wiener": {"registers": w[0], "shared_bytes": w[1]},
-            "lr_sgr": {"registers": w[2], "shared_bytes": w[3]}}
+            "lr_sgr": {"registers": w[2], "shared_bytes": w[3]},
+            "resize": {"registers": r[0], "shared_bytes": r[1],
+                       "ctas_per_sm": r[2]}}
 
 
 class ChainLog:
@@ -1829,9 +1892,10 @@ def check_lr_frames(name, frames, n):
              f"{n} frames")
     for i, fr in enumerate(frames):
         k, u = fr["launches"], fr["units"]
-        if fr["resize"]:
-            _require(k.get("resize", 0) >= 1, f"{name} frame {i}: super-res "
-                     f"without a resize launch: {k}")
+        # one launch for the frame's planes and the snapshot's
+        _require(k.get("resize", 0) == int(fr["resize"]), f"{name} frame "
+                 f"{i}: super-res {fr['resize']} with {k.get('resize', 0)} "
+                 f"resize launches, want one a super-res frame: {k}")
         if u.get("lr_wiener_units"):
             _require(k.get("lr_wiener", 0) >= 1, f"{name} frame {i}: "
                      f"Wiener units without a lr_wiener launch: {k}")
@@ -1903,7 +1967,7 @@ def main() -> int:
     occ = itx_occupancy()
     print(f"  itx kernel (64 threads a CTA): {occ}", flush=True)
     attrs = restore_grain_attrs()
-    print(f"  fg / lr_wiener / lr_sgr kernels (registers, static shared "
+    print(f"  fg / lr_wiener / lr_sgr / resize kernels (registers, shared "
           f"bytes): {attrs}", flush=True)
 
     # (ops/itx imports the port's recon/itx, which loads the native C:
@@ -1972,8 +2036,9 @@ def main() -> int:
         for k in LR_KERNELS:
             launches[k] = launches.get(k, 0) + got[k]
     _require(launches["lr_sgr"] >= 1, f"{LR_STREAM}: no lr_sgr launch")
-    _require(launches["resize"] >= lr_frames[SR_STREAM],
-             f"{SR_STREAM}: {launches['resize']} resize launches")
+    _require(launches["resize"] == lr_frames[SR_STREAM],
+             f"{SR_STREAM}: {launches['resize']} resize launches for "
+             f"{lr_frames[SR_STREAM]} super-res frames")
     # film grain: one fg launch per plane with grain on every picture
     for name in (FG_STREAM, FG_HBD_STREAM):
         devrt.LAUNCHES.clear()
@@ -2121,9 +2186,9 @@ def main() -> int:
     from dav1d_tpu_torch.ops import lr as olr
     from dav1d_tpu_torch.ops import resize as oresize
 
-    plain_of = {"resize": oresize.resize_plane_plain,
+    plain_of = {"resize": oresize.resize_planes_plain,
                 "lr_wiener": olr.wiener_plain, "lr_sgr": olr.sgr_plain}
-    kernel_of = {"resize": oresize.resize_plane, "lr_wiener": olr.wiener,
+    kernel_of = {"resize": oresize.resize_planes, "lr_wiener": olr.wiener,
                  "lr_sgr": olr.sgr}
     lr_calls = {k: [] for k in LR_KERNELS}
     lr_report = {}
@@ -2140,8 +2205,8 @@ def main() -> int:
         swall = time.perf_counter() - t0
         sspans, sxfer, ssink = devrt.SPANS, devrt.XFER, devrt.SINK
         devrt.SPANS = devrt.XFER = devrt.SINK = None
-        # of the keywords only the Wiener call's chunk table (the
-        # kernel's schedule; an ``out`` would hold the decode's result)
+        # of the keywords only the restoration calls' chunk tables (the
+        # kernels' schedules; an ``out`` would hold the decode's result)
         scalls = [(tag, args, {k: v for k, v in kw.items() if k == "chunks"})
                   for tag, _, args, kw in ssink if tag in LR_KERNELS]
         sbound = {k: sum(bound(k, a)[0] for t, a, _ in scalls if t == k)
@@ -2162,10 +2227,12 @@ def main() -> int:
               f"bound (ms) { {k: round(v, 5) for k, v in sbound.items()} }",
               flush=True)
         for i, (tag, args, kw) in enumerate(scalls):
-            # kw: the Wiener call's chunk table (the kernel's schedule)
+            # kw: a restoration call's chunk table (the kernel's schedule)
             e = _max_abs_err(kernel_of[tag](*args, **kw),
                              plain_of[tag](*args))
-            what = (f"{tuple(args[0].shape)} -> {args[1]} wide"
+            what = (f"{len(args[0])} planes "
+                    f"{[tuple(p.shape) for p in args[0]]} -> "
+                    f"{[g[0] for g in args[1]]} wide"
                     if tag == "resize" else f"{args[2].shape[0]} units "
                     f"on {tuple(args[0].shape)}")
             print(f"  {tag} {name} call {i}: {what}, max_abs_err={e}",
@@ -2303,9 +2370,21 @@ def main() -> int:
         f"{MAIN_STREAM} key frame luma walk ({wkey['levels']} levels, "
         f"{wkey['units']} units)", functools.partial(oip.walk, **wl["kw"]),
         oip.walk_plain, wargs)
-    name, big, _ = max(lr_calls["resize"], key=lambda c: c[1][0].numel())
-    timed["resize"] = (f"{name} luma call {tuple(big[0].shape)}",
-                       oresize.resize_plane, oresize.resize_plane_plain, big)
+    # resize: the decode's call (the frame's planes and the snapshot's),
+    # and below its luma plane alone and phase 3's denominator-9 luma
+    # plane
+    name, big, _ = max(lr_calls["resize"], key=lambda c: len(c[1][0]))
+    timed["resize"] = (f"{name} frame call, {len(big[0])} planes",
+                       oresize.resize_planes, oresize.resize_planes_plain,
+                       big)
+    resize_more = {
+        "one_plane_luma": (
+            f"{name} luma plane alone {tuple(big[0][0].shape)}",
+            oresize.resize_plane, oresize.resize_plane_plain,
+            (big[0][0], *big[1][0], big[2])),
+        "denominator_9_luma": next(
+            c for c in cases["resize"] if c[0].startswith("luma")
+            and "1/9 " in c[0] and c[0].endswith("bd8"))}
     for k in ("lr_wiener", "lr_sgr"):
         name, big, kw = max(lr_calls[k], key=lambda c: c[1][2].shape[0])
         timed[k] = (f"{name} call of {big[2].shape[0]} units "
@@ -2371,7 +2450,7 @@ def main() -> int:
             kernels[-1].update(registers=attrs[name]["registers"],
                                shared_bytes=attrs[name]["shared_bytes"])
             print(f"  {name:12s} {attrs[name]['registers']} registers, "
-                  f"{attrs[name]['shared_bytes']} B of static shared "
+                  f"{attrs[name]['shared_bytes']} B of shared "
                   f"memory", flush=True)
         if name == "ipred_walk":
             # levels x one handoff plus the smallest unit: what a chain of
@@ -2382,19 +2461,39 @@ def main() -> int:
                   f"{kernels[-1]['latency_floor_ms']:.4f} ms, share "
                   f"{kernels[-1]['latency_floor_ms'] / l_ms:.3f}",
                   flush=True)
+    def extra_call(name, entry):
+        """Wrapper, launch and plain ms, bound and share of one more call
+        of kernel ``name``: entry = (label, kernel_fn, plain_fn, args)."""
+        label, kfn, _, args = entry
+        ms, plain_ms, _ = time_kernels({name: entry})[name]
+        l_ms, host_s = launch_ms(kfn, args)
+        bound_ms, bound_by = bound(name, args)
+        print(f"  {name:12s} {label}: wrapper {ms:.4f} ms, launch "
+              f"{l_ms:.4f} ms (20 launches queued in {host_s * 1e3:.2f} ms "
+              f"of host time), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), share "
+              f"{bound_ms / l_ms:.3f}", flush=True)
+        return {"label": label, "ms": ms, "launch_ms": l_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "share": bound_ms / l_ms}
+
+    entry = {k["name"]: k for k in kernels}
     # the second itx call
-    label, kfn, pfn, args = timed_inter
-    ms, plain_ms, _ = time_kernels({"itx": timed_inter})["itx"]
-    l_ms, host_s = launch_ms(kfn, args)
-    bound_ms, bound_by = bound("itx", args)
-    print(f"  itx          {label}: wrapper {ms:.4f} ms, launch "
-          f"{l_ms:.4f} ms (20 launches queued in {host_s * 1e3:.2f} ms of "
-          f"host time), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}), share {bound_ms / l_ms:.3f}", flush=True)
-    next(k for k in kernels if k["name"] == "itx")["second_call"] = {
-        "label": label, "ms": ms, "launch_ms": l_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "share": bound_ms / l_ms}
+    entry["itx"]["second_call"] = extra_call("itx", timed_inter)
+    # resize: the frame call's luma plane alone, a denominator-9 luma plane
+    for key, item in resize_more.items():
+        entry["resize"][key] = extra_call("resize", item)
+    # the empty launch: the floor under any launch's device time
+    empty_ms, _ = launch_ms(build.empty_launch,
+                            (torch.empty(1, device=device),))
+    print(f"  empty launch (the floor under every launch): {empty_ms:.4f} "
+          f"ms", flush=True)
+    # lr_sgr: its timed call against the floor
+    label = timed["lr_sgr"][0]
+    entry["lr_sgr"]["launch_floor_ms"] = empty_ms
+    print(f"  lr_sgr       {label}: launch {entry['lr_sgr']['launch_ms']:.4f}"
+          f" ms; {entry['lr_sgr']['launch_ms'] / empty_ms:.2f}x the empty "
+          f"launch", flush=True)
     _require(not _jax_modules(), f"jax was imported: {_jax_modules()}")
     print(json.dumps({"decode_fps": fps, "decode_fps_runs": runs,
                       "stage_ms_per_frame": stages, "stream": MAIN_STREAM,
@@ -2411,6 +2510,7 @@ def main() -> int:
                           for k, v in intra_report.items()},
                       "key_frame_walks": key_walks,
                       "walk_floor_ms_per_level": floor,
+                      "empty_launch_ms": empty_ms,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,23 +32,40 @@
 // 14 multiply-adds a pixel).  Shared memory: 30,024 bytes against 37,520
 // for the stage-then-filter tile it replaces.
 //
-// lr_sgr: a CTA per 32-column chunk of one unit (CTAs past a unit's
-// width return at once) stages the whole window (4 reads in flight a
-// thread) and runs the filter's phases over shared memory in series;
-// 46,544 bytes of static shared memory.
+// lr_sgr: a CTA per row of its own chunk table (ops/lr.py
+// chunk_table(sgr=True)), one band of 16 rows (lr::SGR_SB; fewer at a
+// stripe's end) of one 32-column chunk of one unit, starting on an even
+// unit row (the parity of the 5x5 rows is the unit's).  Its TPU program, dav1d_tpu/ops/lr.py _jit_sgr with the box
+// sums of :115 inside _jit_lr_group, is a handful of batched XLA
+// passes; its first port here was a CTA per 32-column chunk on a grid of
+// (units, 12) whose CTAs past a unit's width returned at once (the
+// 16-unit call of the 1080p restoration stream: 128 of 192 CTAs live),
+// each staging the unit's whole window and running box sums of 9 and 25
+// shared reads a point in series.  Its bound is tiny (0.3 us of bytes for
+// that call), so what holds it is latency: a launch plus one CTA's chain
+// of dependent phases.  Here every band is 16 rows, one band a CTA (that
+// call: 256 CTAs, every one with work): cp.async copies of the band's
+// window rows, the column sums of px and px^2, the (A, B) rows from
+// horizontal sums of those (6 or 10 shared reads a point), the filter 4
+// columns a thread; x_by_x in shared memory, not divergent __constant__
+// reads; 20,880 bytes of static shared memory, <= 64 registers (4 CTAs
+// an SM).  What holds it (an H100 at 700 W, chip_smoke.py): the launch
+// itself, about a third of the call's time (an empty kernel's launch is
+// timed beside it), then one CTA's chain: the chunk row, the window's
+// copies, the three phases.  On that call 16-row bands were faster than
+// 8-row bands (512 CTAs) and 32-row ones; 512 threads a CTA or one (A, B)
+// a work item did not shorten the chain.
 #include "common.cuh"
 #include "lr_core.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
 
 __global__ void __launch_bounds__(lr::WIENER_THREADS)
     lr_wiener_kernel(const int* __restrict__ chunks, lr::Planes p) {
     __shared__ __align__(16) lr::WienerRing s;
     const int tid = threadIdx.x;
     lr::Band b;
-    lr::load_band(b, chunks, blockIdx.x, p);
+    lr::load_band(b, chunks, blockIdx.x, p, lr::WIENER_CW, false);
     lr::wiener_setup(s, b, p, tid);
     __syncthreads();
     lr::wiener_issue(s, b, 0, tid);
@@ -67,40 +84,46 @@ __global__ void __launch_bounds__(lr::WIENER_THREADS)
     }
 }
 
-__global__ void __launch_bounds__(THREADS)
-    lr_sgr_kernel(const int* __restrict__ jobs, lr::Planes p) {
-    __shared__ lr::SgrTile s;
-    lr::Job j;
-    if (!lr::load_job(j, jobs + (long long)blockIdx.x * lr::JOB_COLS,
-                      blockIdx.y, lr::SGR_CW))
-        return;
-    lr::stage(s.win, lr::SGR_WS, j, p, threadIdx.x, THREADS);
+__global__ void __launch_bounds__(lr::SGR_THREADS, 4)
+    lr_sgr_kernel(const int* __restrict__ chunks, lr::Planes p) {
+    __shared__ __align__(16) lr::SgrTile s;
+    const int tid = threadIdx.x;
+    lr::Band b;
+    lr::load_band(b, chunks, blockIdx.x, p, lr::SGR_CW, true);
+    lr::sgr_setup(s, tid);
+    lr::sgr_issue(s, b, p, tid);
+    LR_CP_COMMIT();
+    LR_CP_WAIT0();
     __syncthreads();
-    lr::sgr_ab(s, j, p.bd, threadIdx.x, THREADS);
+    lr::sgr_vsum(s, b, tid);
     __syncthreads();
-    lr::sgr_filter(s, j, p, threadIdx.x, THREADS);
+    lr::sgr_ab(s, b, p.bd, tid);
+    __syncthreads();
+    lr::sgr_filter(s, b, p, tid);
 }
 
 }  // namespace
 
-// The n_jobs self-guided units of the job table (int32, lr_core.cuh
-// columns) of the (H, W) int32 planes post (post-CDEF) and pre
-// (snapshot), written into out; out's other pixels are left as they
-// are.  Returns cudaError_t.
+// The self-guided units of a plane, one CTA for each of the n_chunks rows
+// of its chunk table (int32, lr_core.cuh C_* columns: a band of at most
+// 16 rows of a chunk of a unit, starting on an even unit row, with the
+// unit's job row; 16-byte aligned), of the (H, W)
+// int32 planes post (post-CDEF) and pre (snapshot), written into out;
+// out's other pixels are left as they are.  Returns cudaError_t.
 DTPU_API int dtpu_lr_sgr(const int* post, const int* pre, int* out, int H,
-                         int W, const int* jobs, int n_jobs, int bitdepth,
-                         void* stream) {
-    if (n_jobs <= 0) return (int)cudaSuccess;
+                         int W, const int* chunks, int n_chunks,
+                         int bitdepth, void* stream) {
+    if (n_chunks <= 0) return (int)cudaSuccess;
     const lr::Planes p{post, pre, out, H, W, bitdepth};
-    const dim3 grid(n_jobs, lr::MAX_UW / lr::SGR_CW);
-    lr_sgr_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(jobs, p);
+    lr_sgr_kernel<<<n_chunks, lr::SGR_THREADS, 0, (cudaStream_t)stream>>>(
+        chunks, p);
     return (int)cudaGetLastError();
 }
 
 // The Wiener units of a plane, one CTA for each of the n_chunks rows of
 // the chunk table (int32, lr_core.cuh C_* columns: a band of a chunk of a
 // unit with the unit's job row; 16-byte aligned), as dtpu_lr_sgr writes
-// them.  Returns cudaError_t.
+// its units.  Returns cudaError_t.
 DTPU_API int dtpu_lr_wiener(const int* post, const int* pre, int* out,
                             int H, int W, const int* chunks, int n_chunks,
                             int bitdepth, void* stream) {

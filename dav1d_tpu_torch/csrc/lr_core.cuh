@@ -23,13 +23,16 @@
 //           vertical pass (rounded by rb_v about 2^(bd+rb_v-1), clipped
 //           to the bit depth) into the output (reference
 //           wiener_filter_h/v, src/looprestoration_tmpl.c:44-190);
-//   SGR     a CTA takes one chunk of SGR_CW columns of one job: the
-//           whole window staged, the (A, B) rows of the 3x3 boxes (every
-//           row -1..sh) and of the 5x5 boxes (odd rows), then per pixel
-//           the 3x3 weights 4/3 (>> 9) and the 5x5 weights 6/5 on even
-//           rows (>> 9) and odd rows (>> 8), blended src + ((w0 t5 + w1
-//           t3 + 2^10) >> 11) and clipped (reference sgr_5x5_c /
-//           sgr_3x3_c / sgr_mix_c, src/looprestoration_tmpl.c:679-1090).
+//   SGR     a CTA takes one band of a chunk (a chunk table row whose
+//           band of at most 16 rows starts on an even unit row): the
+//           copies of the band's window rows, the 3- and 5-row
+//           column sums of px and px^2, the (A, B) of the 3x3 boxes
+//           (every row) and of the 5x5 boxes (odd unit rows) from
+//           horizontal sums of those, then per pixel the 3x3 weights
+//           4/3 (>> 9) and the 5x5 weights 6/5 on even rows (>> 9) and
+//           odd rows (>> 8), blended src + ((w0 t5 + w1 t3 + 2^10) >> 11)
+//           and clipped (reference sgr_5x5_c / sgr_3x3_c / sgr_mix_c,
+//           src/looprestoration_tmpl.c:679-1090).
 //
 // Exactness: z = (p s + 2^19) >> 20 and A = (x su one_by_x + 2^11) >> 12
 // exceed int32 at 12-bit; both are int64 products here.  (The plain
@@ -46,15 +49,17 @@
 // plain C++ (a host build runs the same phases thread by thread), so
 // nothing outside the LR_* macros uses a CUDA builtin: LR_CP4 / LR_CP16
 // are cp.async copies of 4 / 16 bytes into shared memory on the card,
-// LR_CP_COMMIT closes a group of them and LR_CP_WAIT1 waits for all but
-// the last group; on the host the copies are plain and the rest nothing.
+// LR_CP_COMMIT closes a group of them, LR_CP_WAIT1 waits for all but the
+// last group and LR_CP_WAIT0 for all; on the host the copies are plain
+// and the rest nothing.  The x_by_x table (LR_TABLE) is in global memory
+// on the card, copied into each self-guided CTA's shared memory.
 // LR_LDG16 (through the read-only path), LR_LD16 and LR_ST16 move 4
 // ints at a 16-byte aligned address.
 #pragma once
 
 #ifdef __CUDACC__
 #define LR_FN __device__ inline
-#define LR_CONST __constant__
+#define LR_TABLE __device__
 #define LR_LDG(p) __ldg(p)
 #define LR_TRAP() __trap()
 __device__ __forceinline__ void lr_cp_async(int* dst, const int* src,
@@ -73,6 +78,7 @@ __device__ __forceinline__ void lr_cp_async(int* dst, const int* src,
 #define LR_CP16(dst, src) lr_cp_async(dst, src, 16)
 #define LR_CP_COMMIT() asm volatile("cp.async.commit_group;\n" ::: "memory")
 #define LR_CP_WAIT1() asm volatile("cp.async.wait_group 1;\n" ::: "memory")
+#define LR_CP_WAIT0() asm volatile("cp.async.wait_group 0;\n" ::: "memory")
 #define LR_LDG16(p, v)                                               \
     do {                                                             \
         const int4 t_ = __ldg(reinterpret_cast<const int4*>(p));     \
@@ -89,13 +95,14 @@ __device__ __forceinline__ void lr_cp_async(int* dst, const int* src,
 #include <stdlib.h>
 #include <string.h>
 #define LR_FN inline
-#define LR_CONST
+#define LR_TABLE
 #define LR_LDG(p) (*(p))
 #define LR_TRAP() abort()
 #define LR_CP4(dst, src) (*(dst) = *(src))
 #define LR_CP16(dst, src) memcpy(dst, src, 16)
 #define LR_CP_COMMIT()
 #define LR_CP_WAIT1()
+#define LR_CP_WAIT0()
 #define LR_LDG16(p, v) memcpy(v, p, 16)
 #define LR_LD16(p, v) memcpy(v, p, 16)
 #define LR_ST16(p, v) memcpy(p, v, 16)
@@ -110,11 +117,11 @@ constexpr int J_X = 0, J_Y = 1, J_UW = 2, J_SH = 3, J_EDGES = 4, J_H = 5,
 constexpr int MAX_UW = 384, MAX_SH = 64;
 // edge flags (recon/lr_apply.py LR_HAVE_*)
 constexpr int HAVE_LEFT = 1, HAVE_RIGHT = 2, HAVE_TOP = 4, HAVE_BOTTOM = 8;
-// output columns of a CTA
-constexpr int WIENER_CW = 64, SGR_CW = 32;
+// output columns of a CTA; output rows of a self-guided band
+constexpr int WIENER_CW = 64, SGR_CW = 32, SGR_SB = 16;
 
 // tables.sgr_x_by_x
-LR_CONST const int X_BY_X[256] = {
+LR_TABLE const int X_BY_X[256] = {
     255, 128, 85, 64, 51, 43, 37, 32, 28, 26, 23, 21, 20, 18, 17, 16,
     15,  14,  13, 13, 12, 12, 11, 11, 10, 10, 9,  9,  9,  9,  8,  8,
     8,   8,   7,  7,  7,  7,  7,  6,  6,  6,  6,  6,  6,  6,  5,  5,
@@ -163,18 +170,6 @@ LR_FN void set_job(Job& j, const int* v) {
     if (j.uw < 1 || j.uw > MAX_UW || j.sh < 1 || j.sh > MAX_SH) LR_TRAP();
 }
 
-// Job row `row`, chunk `chunk` of cw_max columns; false when the chunk
-// lies beyond the unit.
-LR_FN bool load_job(Job& j, const int* row, int chunk, int cw_max) {
-    int v[JOB_COLS];
-    for (int k = 0; k < JOB_COLS; k++) v[k] = LR_LDG(row + k);
-    set_job(j, v);
-    j.cx0 = chunk * cw_max;
-    if (j.cx0 >= j.uw) return false;
-    j.cw = j.uw - j.cx0 < cw_max ? j.uw - j.cx0 : cw_max;
-    return true;
-}
-
 // Plane row of window row r (0 <= r < sh + 6).
 LR_FN const int* win_row(const Job& j, const Planes& p, int r) {
     long long y;
@@ -205,28 +200,6 @@ LR_FN int win_col(const Job& j, const Planes& p, int c) {
     if (!(j.edges & HAVE_LEFT) && x < j.x) x = j.x;
     if (!(j.edges & HAVE_RIGHT) && x > j.x + j.uw - 1) x = j.x + j.uw - 1;
     return x < 0 ? 0 : (x > p.W - 1 ? p.W - 1 : x);
-}
-
-// The padded window into win (row stride ws = cw_max + 6), DEPTH reads
-// of a thread in flight before their stores.
-constexpr int DEPTH = 4;
-
-LR_FN void stage(int* win, int ws, const Job& j, const Planes& p, int tid,
-                 int nt) {
-    const int w = j.cw + 6, n = (j.sh + 6) * w;
-    for (int i0 = tid; i0 < n; i0 += DEPTH * nt) {
-        int v[DEPTH];
-#pragma unroll
-        for (int d = 0; d < DEPTH; d++) {
-            const int i = i0 + d * nt, r = i / w, c = i - r * w;
-            if (i < n) v[d] = LR_LDG(win_row(j, p, r) + win_col(j, p, c));
-        }
-#pragma unroll
-        for (int d = 0; d < DEPTH; d++) {
-            const int i = i0 + d * nt, r = i / w, c = i - r * w;
-            if (i < n) win[r * ws + c] = v[d];
-        }
-    }
 }
 
 // ---- Wiener: a chunk table of row bands, streamed through a ring -------
@@ -282,9 +255,12 @@ LR_FN bool aligned16(const int* q) {
     return (reinterpret_cast<unsigned long long>(q) & 15) == 0;
 }
 
-// Chunk row `ci` of the table (16-byte aligned).  Traps on a row the
-// kernel does not take (ops/lr.py check_chunks refuses it on the host).
-LR_FN void load_band(Band& b, const int* chunks, int ci, const Planes& p) {
+// Chunk row `ci` of a table of cw_max-column chunks (16-byte aligned);
+// `sgr`: the self-guided table, whose bands start on an even unit row and
+// hold at most SGR_SB rows.  Traps on a row the kernel does not take
+// (ops/lr.py check_chunks refuses it on the host).
+LR_FN void load_band(Band& b, const int* chunks, int ci, const Planes& p,
+                     int cw_max, bool sgr) {
     const int* c = chunks + (long long)ci * CHUNK_COLS;
     int v[CHUNK_COLS];
 #pragma unroll
@@ -294,10 +270,11 @@ LR_FN void load_band(Band& b, const int* chunks, int ci, const Planes& p) {
     j.cx0 = v[C_X];
     b.r0 = v[C_R0];
     b.nr = v[C_NR];
-    if (j.cx0 < 0 || j.cx0 % WIENER_CW || j.cx0 >= j.uw || b.r0 < 0 ||
-        b.nr < 1 || b.r0 + b.nr > j.sh)
+    if (j.cx0 < 0 || j.cx0 % cw_max || j.cx0 >= j.uw || b.r0 < 0 ||
+        b.nr < 1 || b.r0 + b.nr > j.sh ||
+        (sgr && ((b.r0 & 1) || b.nr > SGR_SB)))
         LR_TRAP();
-    j.cw = j.uw - j.cx0 < WIENER_CW ? j.uw - j.cx0 : WIENER_CW;
+    j.cw = j.uw - j.cx0 < cw_max ? j.uw - j.cx0 : cw_max;
     // the window's plane columns x_lo .. x_hi, unclamped?
     const int x_lo = j.x + j.cx0 - 3, x_hi = j.x + j.cx0 + j.cw + 2;
     const bool whole = (x_lo >= j.x || (j.edges & HAVE_LEFT)) &&
@@ -475,111 +452,227 @@ LR_FN void wiener_vpass(const WienerRing& s, const Band& b, int g,
     }
 }
 
-// ---- self-guided ----------------------------------------------------------
+// ---- self-guided: a chunk table of 16-row bands, one CTA each ----------
+//
+// A launch takes a chunk table of SGR_CW-column chunks (ops/lr.py
+// chunk_table(sgr=True)): one row per live (job, chunk, band of at most
+// SGR_SB output rows), every band starting on an even unit row, since the
+// 5x5 (A, B) exist on odd unit rows and the filter weighs even and odd
+// rows differently (the parity is the unit's).  A CTA runs its band in
+// four phases between barriers:
+//
+//   sgr_issue   the band's nr + 6 window rows (win_row of the unit window
+//               rows r0 .. r0 + nr + 5): 16-byte copies from the aligned
+//               column a where the chunk's columns need no clamp, as the
+//               Wiener kernel stages (load_band), else element copies
+//               through win_col;
+//   sgr_vsum    per window column, the 3-row sums of px and px^2 under
+//               each (A, B) row q of the band (unit row r0 - 1 + q, window
+//               rows q + 1 .. q + 3) and the 5-row sums (rows q .. q + 4)
+//               under the odd unit rows (even q);
+//   sgr_ab      per (A, B) point, the horizontal sums of 3 (5) of those
+//               and calc_ab, the x_by_x table from shared memory: 6 (10)
+//               shared reads a point where box sums took 18 (50);
+//   sgr_filter  4 columns a thread: the (A, B) neighbourhoods through
+//               16-byte shared loads, the blend and the clip, a 16-byte
+//               store where the output row allows it.
 
-constexpr int SGR_WS = SGR_CW + 6;  // window row stride
-constexpr int SGR_AS = SGR_CW + 2;  // (A, B) row stride: columns -1..cw
+constexpr int SGR_THREADS = 256;
+// (A, B) rows of a band, of them on odd unit rows
+constexpr int SGR_Q = SGR_SB + 2, SGR_Q5 = SGR_SB / 2 + 1;
+// words of a staged window row: the chunk's 38 window columns from an
+// aligned start
+constexpr int SGR_RS = 44;
+// window columns; (A, B) row stride (columns -1..cw, 16-byte rows)
+constexpr int SGR_VW = SGR_CW + 6, SGR_AS = 36;
 
 struct SgrTile {
-    int win[(MAX_SH + 6) * SGR_WS];
-    // (A, B) of rows -1..sh at index y + 1; the 5x5 ones on odd rows
-    int a3[(MAX_SH + 2) * SGR_AS], b3[(MAX_SH + 2) * SGR_AS];
-    int a5[(MAX_SH + 2) * SGR_AS], b5[(MAX_SH + 2) * SGR_AS];
+    int win[(SGR_SB + 6) * SGR_RS];  // window rows of the band
+    // (A, B) of (A, B) row q at q * SGR_AS; the 5x5 ones of even q at
+    // q / 2 * SGR_AS
+    int a3[SGR_Q * SGR_AS], b3[SGR_Q * SGR_AS];
+    int a5[SGR_Q5 * SGR_AS], b5[SGR_Q5 * SGR_AS];
+    // column sums of px and px^2: 3 rows under every q, 5 under even q
+    int vs3[SGR_Q * SGR_VW], vq3[SGR_Q * SGR_VW];
+    int vs5[SGR_Q5 * SGR_VW], vq5[SGR_Q5 * SGR_VW];
+    int x_by_x[256];
 };
 
 // reference sgr_calc_row_ab (src/looprestoration_tmpl.c:505-523) for one
-// box: sum su and square sum sq of n pixels.
+// box: sum su and square sum sq of n pixels; xbx the x_by_x table.
 LR_FN void calc_ab(int su, int sq, int s, int n, int one_by_x, int bdm8,
-                   int* A, int* B) {
+                   const int* xbx, int* A, int* B) {
     const int a = (sq + ((1 << (2 * bdm8)) >> 1)) >> (2 * bdm8);
     const int b = (su + ((1 << bdm8) >> 1)) >> bdm8;
     int pp = a * n - b * b;
     pp = pp < 0 ? 0 : pp;
     const int z = (int)(((long long)pp * s + (1 << 19)) >> 20);
-    const int xv = X_BY_X[z < 255 ? z : 255];
+    const int xv = xbx[z < 255 ? z : 255];
     *A = (int)(((long long)xv * su * one_by_x + (1 << 11)) >> 12);
     *B = xv;
 }
 
-// Box sums of the (2r+1)^2 window pixels whose top-left is window
-// (r0, c0).
-LR_FN void box(const int* win, int r0, int c0, int d, int* su, int* sq) {
-    int a = 0, b = 0;
-    for (int y = 0; y < d; y++)
-        for (int x = 0; x < d; x++) {
-            const int v = win[(r0 + y) * SGR_WS + c0 + x];
-            a += v;
-            b += v * v;
-        }
-    *su = a;
-    *sq = b;
+// The x_by_x table into shared memory (the thread's share).
+LR_FN void sgr_setup(SgrTile& s, int tid) {
+    for (int i = tid; i < 256; i += SGR_THREADS) s.x_by_x[i] = X_BY_X[i];
 }
 
-LR_FN void sgr_ab(SgrTile& s, const Job& j, int bd, int tid, int nt) {
-    const int variant = j.p[4], w = j.cw + 2, n = (j.sh + 2) * w;
-    for (int i = tid; i < n; i += nt) {
-        // (A, B) row k = y + 1 of rows y = -1..sh, column c = x + 1
-        const int k = i / w, c = i - k * w, o = k * SGR_AS + c;
-        int su, sq;
-        if (variant != 0) {  // 3x3 box of window rows k+1..k+3
-            box(s.win, k + 1, c + 1, 3, &su, &sq);
-            calc_ab(su, sq, j.p[1], 9, 455, bd - 8, s.a3 + o, s.b3 + o);
+// Issue the copies of the band's window rows, the thread's share.
+LR_FN void sgr_issue(SgrTile& s, const Band& b, const Planes& p, int tid) {
+    const int R = b.r0, rows = b.nr + 6;
+    if (b.vec) {
+        for (int i = tid; i < rows * b.nw; i += SGR_THREADS) {
+            const int r = i / b.nw, q = i - r * b.nw;
+            LR_CP16(s.win + r * SGR_RS + 4 * q,
+                    win_row(b.j, p, R + r) + b.a + 4 * q);
         }
-        if (variant != 1 && !(k & 1)) {  // odd y: window rows k..k+4
-            box(s.win, k, c, 5, &su, &sq);
-            calc_ab(su, sq, j.p[0], 25, 164, bd - 8, s.a5 + o, s.b5 + o);
+    } else {
+        const int w = b.j.cw + 6;
+        for (int i = tid; i < rows * w; i += SGR_THREADS) {
+            const int r = i / w, c = i - r * w;
+            LR_CP4(s.win + r * SGR_RS + c,
+                   win_row(b.j, p, R + r) + win_col(b.j, p, c));
         }
     }
 }
 
-// The 3x3 neighbourhood of (A, B) row k + 1, column c + 1: centre and
-// cross weigh 4, corners 3.
-LR_FN int eight(const int* m, int k, int c) {
-    const int* u = m + k * SGR_AS + c;
-    const int* v = u + SGR_AS;
-    const int* d = v + SGR_AS;
-    return (v[1] + v[0] + v[2] + u[1] + d[1]) * 4 +
-           (u[0] + d[0] + u[2] + d[2]) * 3;
+// The column sums of the band (the thread's share).
+LR_FN void sgr_vsum(SgrTile& s, const Band& b, int tid) {
+    const int variant = b.j.p[4], w = b.j.cw + 6;
+    const int n = (b.nr + 2) * w;
+    for (int i = tid; i < n; i += SGR_THREADS) {
+        const int q = i / w, c = i - q * w;
+        const int* col = s.win + q * SGR_RS + b.shift + c;
+        int v[5];
+#pragma unroll
+        for (int k = 0; k < 5; k++) v[k] = col[k * SGR_RS];
+        const int su = v[1] + v[2] + v[3];
+        const int sq = v[1] * v[1] + v[2] * v[2] + v[3] * v[3];
+        if (variant != 0) {
+            s.vs3[q * SGR_VW + c] = su;
+            s.vq3[q * SGR_VW + c] = sq;
+        }
+        if (variant != 1 && !(q & 1)) {
+            s.vs5[(q >> 1) * SGR_VW + c] = su + v[0] + v[4];
+            s.vq5[(q >> 1) * SGR_VW + c] = sq + v[0] * v[0] + v[4] * v[4];
+        }
+    }
 }
 
-LR_FN void sgr_filter(const SgrTile& s, const Job& j, const Planes& p,
-                      int tid, int nt) {
-    const int variant = j.p[4], w0 = j.p[2], w1 = j.p[3];
+// The (A, B) of the band's rows q, columns -1..cw (the thread's share).
+LR_FN void sgr_ab(SgrTile& s, const Band& b, int bd, int tid) {
+    const int variant = b.j.p[4], w = b.j.cw + 2;
+    const int n = (b.nr + 2) * w;
+    for (int i = tid; i < n; i += SGR_THREADS) {
+        const int q = i / w, c = i - q * w;
+        if (variant != 0) {  // 3x3: window columns c + 1 .. c + 3
+            const int* vs = s.vs3 + q * SGR_VW + c + 1;
+            const int* vq = s.vq3 + q * SGR_VW + c + 1;
+            calc_ab(vs[0] + vs[1] + vs[2], vq[0] + vq[1] + vq[2], b.j.p[1],
+                    9, 455, bd - 8, s.x_by_x, s.a3 + q * SGR_AS + c,
+                    s.b3 + q * SGR_AS + c);
+        }
+        if (variant != 1 && !(q & 1)) {  // 5x5: columns c .. c + 4
+            const int* vs = s.vs5 + (q >> 1) * SGR_VW + c;
+            const int* vq = s.vq5 + (q >> 1) * SGR_VW + c;
+            calc_ab(vs[0] + vs[1] + vs[2] + vs[3] + vs[4],
+                    vq[0] + vq[1] + vq[2] + vq[3] + vq[4], b.j.p[0], 25, 164,
+                    bd - 8, s.x_by_x, s.a5 + (q >> 1) * SGR_AS + c,
+                    s.b5 + (q >> 1) * SGR_AS + c);
+        }
+    }
+}
+
+// Words c0 .. c0 + 7 of row `row` of an (A, B) array (two 16-byte loads).
+LR_FN void ab8(const int* m, int row, int c0, int* v) {
+    LR_LD16(m + row * SGR_AS + c0, v);
+    LR_LD16(m + row * SGR_AS + c0 + 4, v + 4);
+}
+
+// The band's output rows, 4 columns a thread (the thread's share).
+// Columns past the chunk's width are neither computed nor stored, and
+// their (A, B) words, never written, are not read.
+LR_FN void sgr_filter(const SgrTile& s, const Band& b, const Planes& p,
+                      int tid) {
+    constexpr int QPR = SGR_CW / 4;  // 4-column groups of a row
+    const int r = tid / QPR, c0 = 4 * (tid % QPR);
+    if (r >= b.nr || c0 >= b.j.cw) return;
+    static_assert(SGR_SB * QPR <= SGR_THREADS, "a band in one pass");
+    const int variant = b.j.p[4], w0 = b.j.p[2], w1 = b.j.p[3];
     const int maxp = (1 << p.bd) - 1;
-    const int n = j.sh * j.cw;
-    for (int i = tid; i < n; i += nt) {
-        const int r = i / j.cw, c = i - r * j.cw;
-        const int src = s.win[(r + 3) * SGR_WS + c + 3];
-        int v = 0;
-        if (variant != 1) {
+    const int n = b.j.cw - c0 < 4 ? b.j.cw - c0 : 4;
+    const int* sw = s.win + (r + 3) * SGR_RS + b.shift + c0 + 3;
+    int src[4], v[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int j = 0; j < 4; j++) src[j] = sw[j];
+    if (variant != 1) {
+        int A[2][8], B[2][8];
+        // even unit rows (r, since r0 is even): rows q = r and r + 2;
+        // odd: q = r + 1
+        const int even = !(r & 1), k = even ? r >> 1 : (r + 1) >> 1;
+        ab8(s.a5, k, c0, A[0]);
+        ab8(s.b5, k, c0, B[0]);
+        if (even) {
+            ab8(s.a5, k + 1, c0, A[1]);
+            ab8(s.b5, k + 1, c0, B[1]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; j++) {
+            if (j >= n) break;
             int t5;
-            if (!(r & 1)) {  // rows r - 1 and r + 1: k = r and r + 2
-                const int* au = s.a5 + r * SGR_AS + c;
-                const int* ad = au + 2 * SGR_AS;
-                const int* bu = s.b5 + r * SGR_AS + c;
-                const int* bv = bu + 2 * SGR_AS;
-                const int A = (au[1] + ad[1]) * 6 +
-                              (au[0] + ad[0] + au[2] + ad[2]) * 5;
-                const int B = (bu[1] + bv[1]) * 6 +
-                              (bu[0] + bv[0] + bu[2] + bv[2]) * 5;
-                t5 = (A - B * src + (1 << 8)) >> 9;
-            } else {  // row r: k = r + 1
-                const int* a = s.a5 + (r + 1) * SGR_AS + c;
-                const int* b = s.b5 + (r + 1) * SGR_AS + c;
-                const int A = a[1] * 6 + (a[0] + a[2]) * 5;
-                const int B = b[1] * 6 + (b[0] + b[2]) * 5;
-                t5 = (A - B * src + (1 << 7)) >> 8;
+            if (even) {
+                const int a = (A[0][j + 1] + A[1][j + 1]) * 6 +
+                              (A[0][j] + A[1][j] + A[0][j + 2] + A[1][j + 2]) *
+                                  5;
+                const int bb = (B[0][j + 1] + B[1][j + 1]) * 6 +
+                               (B[0][j] + B[1][j] + B[0][j + 2] + B[1][j + 2]) *
+                                   5;
+                t5 = (a - bb * src[j] + (1 << 8)) >> 9;
+            } else {
+                const int a = A[0][j + 1] * 6 + (A[0][j] + A[0][j + 2]) * 5;
+                const int bb = B[0][j + 1] * 6 + (B[0][j] + B[0][j + 2]) * 5;
+                t5 = (a - bb * src[j] + (1 << 7)) >> 8;
             }
-            v += w0 * t5;
+            v[j] += w0 * t5;
         }
-        if (variant != 0) {
-            const int t3 =
-                (eight(s.a3, r, c) - eight(s.b3, r, c) * src + (1 << 8)) >> 9;
-            v += w1 * t3;
+    }
+    if (variant != 0) {
+        // the weighted 3x3 sums, row by row: centre row 4 / 4 / 4, the
+        // rows above and below 3 / 4 / 3
+        int ea[4] = {0, 0, 0, 0}, eb[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int k = 0; k < 3; k++) {
+            int A[8], B[8];
+            ab8(s.a3, r + k, c0, A);
+            ab8(s.b3, r + k, c0, B);
+            const int side = k == 1 ? 4 : 3;
+#pragma unroll
+            for (int j = 0; j < 4; j++) {
+                if (j >= n) break;
+                ea[j] += A[j + 1] * 4 + (A[j] + A[j + 2]) * side;
+                eb[j] += B[j + 1] * 4 + (B[j] + B[j + 2]) * side;
+            }
         }
-        const int o = src + ((v + (1 << 10)) >> 11);
-        p.out[(long long)(j.y + r) * p.W + j.x + j.cx0 + c] =
-            o < 0 ? 0 : (o > maxp ? maxp : o);
+#pragma unroll
+        for (int j = 0; j < 4; j++) {
+            if (j >= n) break;
+            v[j] += w1 * ((ea[j] - eb[j] * src[j] + (1 << 8)) >> 9);
+        }
+    }
+    int o[4];
+#pragma unroll
+    for (int j = 0; j < 4; j++) {
+        const int t = src[j] + ((v[j] + (1 << 10)) >> 11);
+        o[j] = t < 0 ? 0 : (t > maxp ? maxp : t);
+    }
+    int* d = p.out + (long long)(b.j.y + b.r0 + r) * p.W +
+             b.j.x + b.j.cx0 + c0;
+    if (n == 4 && aligned16(d)) {
+        LR_ST16(d, o);
+    } else {
+#pragma unroll
+        for (int j = 0; j < 4; j++)
+            if (j < n) d[j] = o[j];
     }
 }
 

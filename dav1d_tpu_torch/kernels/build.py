@@ -123,10 +123,11 @@ _SIGNATURES = {
     "dtpu_itx_frame": [_P, _P, _P, _I, _P, _I, _P],
     # out[6]: registers, static shared bytes, CTAs per SM (8/10, 12-bit)
     "dtpu_itx_occupancy": [_P],
-    # src, src_stride, src_w, h, out, out_rows, out_stride, out_w, step,
-    # mx0, bitdepth, stream
-    "dtpu_resize": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P],
-    # post, pre, out, H, W, jobs, n_jobs, bitdepth, stream
+    # srcs[n], outs[n], geo[8 n], n, bitdepth, stream
+    "dtpu_resize": [_P, _P, _P, _I, _I, _P],
+    # out[3]: registers, shared bytes (static and dynamic), CTAs per SM
+    "dtpu_resize_attrs": [_P],
+    # post, pre, out, H, W, chunks, n_chunks, bitdepth, stream
     "dtpu_lr_sgr": [_P, _P, _P, _I, _I, _P, _I, _I, _P],
     # post, pre, out, H, W, chunks, n_chunks, bitdepth, stream
     "dtpu_lr_wiener": [_P, _P, _P, _I, _I, _P, _I, _I, _P],
@@ -137,6 +138,8 @@ _SIGNATURES = {
     "dtpu_fg": [_P, _L, _P, _L, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P],
     # out[4]: registers, static shared bytes (luma, chroma)
     "dtpu_fg_attrs": [_P],
+    # stream
+    "dtpu_empty": [_P],
     # canvas, resid, H, W, ph, jobs, n_jobs, bitdepth, stream
     "dtpu_ipred": [_P, _P, _I, _I, _I, _P, _I, _I, _P],
     # canvas, luma, resid, H, W, ph, YH, YW, jobs, n_jobs, ss_hor, ss_ver,
@@ -196,6 +199,17 @@ def check(t: torch.Tensor, name: str, shape=None,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def empty_launch(t: torch.Tensor) -> None:
+    """Launch the empty kernel (csrc/runtime.cu) on the current stream of
+    ``t``'s device, counted under ``empty``: the device time of a launch
+    that does nothing, the floor under every kernel's (chip_smoke.py
+    times it)."""
+    from .. import devrt
+
+    with torch.cuda.device(t.device):
+        devrt.launch("empty", lib().dtpu_empty, stream(t))
 
 
 def stream(t: torch.Tensor) -> int:

@@ -15,7 +15,10 @@ operations, each a plain PyTorch version plus a wrapper that launches
   launch's size asks; :func:`check_chunks`);
 * :func:`sgr`: every self-guided unit of a plane (variants 0 = 5x5
   only, 1 = 3x3 only, 2 = both; reference sgr_5x5_c / sgr_3x3_c /
-  sgr_mix_c, src/looprestoration_tmpl.c:679-1090).
+  sgr_mix_c, src/looprestoration_tmpl.c:679-1090), one kernel CTA per
+  row of its own chunk table (``chunk_table(jobs, sgr=True)``: a band of
+  16 output rows of a 32-column chunk, every band starting on an even
+  unit row).
 
 Each unit reads a padded window (rows and columns of
 lr_apply._pad_unit_indices) from the post-CDEF plane and the pre-CDEF
@@ -50,6 +53,9 @@ C_JOB, C_X, C_R0, C_NR, C_ROW = range(5)
 # fewer rows
 WIENER_CW = 64
 WIENER_MIN_CTAS = 264
+# output columns and rows of a self-guided band, which starts on an even
+# unit row (the 5x5 (A, B) exist on odd unit rows); a CTA takes one band
+SGR_CW, SGR_SB = 32, 16
 
 
 def job_tables(geom: dict, pl: int):
@@ -74,18 +80,28 @@ def job_tables(geom: dict, pl: int):
                  for k in "ws")
 
 
-def chunk_table(jobs, band: int = 0) -> np.ndarray:
-    """(n, CHUNK_COLS) int32: the Wiener kernel's CTAs for the job rows
-    ``jobs``, one per (job, WIENER_CW-column chunk, band of ``band``
-    output rows), each unit's chunks column by column, the bands of a
-    chunk top to bottom, each row followed by its job's row; the last
-    chunk and band of a unit hold what is left.  ``band`` 0: 64 (a whole
-    stripe a CTA) or 32, the larger that gives at least WIENER_MIN_CTAS
-    rows, else 16."""
+def chunk_table(jobs, band: int = 0, sgr: bool = False) -> np.ndarray:
+    """(n, CHUNK_COLS) int32: the Wiener kernel's CTAs (``sgr``: the
+    self-guided kernel's) for the job rows ``jobs``, one per (job,
+    WIENER_CW- (SGR_CW-) column chunk, band of ``band`` output rows), each
+    unit's chunks column by column, the bands of a chunk top to bottom,
+    each row followed by its job's row; the last chunk and band of a unit
+    hold what is left.  ``band`` 0: for the Wiener kernel the longest band
+    that gives at least WIENER_MIN_CTAS rows, of 64 or 32 rows, else 16;
+    for the self-guided kernel SGR_SB.  A self-guided band has an even
+    number of rows, so that every band starts on an even unit row, and
+    at most SGR_SB."""
     J = np.asarray(jobs).reshape(-1, JOB_COLS)
     uw, sh = J[:, J_UW].astype(np.int64), J[:, J_SH].astype(np.int64)
-    nx = -(-uw // WIENER_CW)
-    if not band:
+    cw = SGR_CW if sgr else WIENER_CW
+    nx = -(-uw // cw)
+    if sgr:
+        band = band or SGR_SB
+        if band % 2 or band > SGR_SB:
+            raise ValueError(f"self-guided band of {band} rows: bands of "
+                             f"at most {SGR_SB} rows start on even unit "
+                             "rows")
+    elif not band:
         band = next((b for b in (64, 32)
                      if (nx * -(-sh // b)).sum() >= WIENER_MIN_CTAS), 16)
     nb = -(-sh // band)
@@ -93,20 +109,23 @@ def chunk_table(jobs, band: int = 0) -> np.ndarray:
     job = np.repeat(np.arange(len(J)), per)
     k = np.arange(len(job)) - np.repeat(np.cumsum(per) - per, per)
     r0 = (k % nb[job]) * band
-    head = np.stack([job, (k // nb[job]) * WIENER_CW, r0,
+    head = np.stack([job, (k // nb[job]) * cw, r0,
                      np.minimum(band, sh[job] - r0)], 1)
     return np.concatenate([head, J[job]], 1).astype(np.int32)
 
 
-def check_chunks(jobs, chunks) -> None:
-    """Raise unless ``chunks`` is a chunk table the Wiener kernel takes for
-    the job rows ``jobs``: every row names a job, a chunk's first column
-    (a multiple of WIENER_CW inside the unit) and a band of at least one
-    output row inside the stripe, carries its job's row, and the rows
-    cover every output pixel of every unit once (the kernel traps on a
-    row outside its unit)."""
+def check_chunks(jobs, chunks, sgr: bool = False) -> None:
+    """Raise unless ``chunks`` is a chunk table the Wiener kernel
+    (``sgr``: the self-guided kernel) takes for the job rows ``jobs``:
+    every row names a job, a chunk's first column (a multiple of
+    WIENER_CW, SGR_CW, inside the unit) and a band of at least one output
+    row inside the stripe (for the self-guided kernel at most SGR_SB rows
+    starting on an even unit row), carries its job's row, and the rows
+    cover every output pixel of every unit once (the kernels trap on a row
+    outside its unit, an odd self-guided start or a longer band)."""
     J = np.asarray(jobs, dtype=np.int64).reshape(-1, JOB_COLS)
     C = np.asarray(chunks, dtype=np.int64)
+    cw = SGR_CW if sgr else WIENER_CW
     if C.ndim != 2 or C.shape[1] != CHUNK_COLS:
         raise ValueError(f"chunks: shape {C.shape}, expected "
                          f"(n, {CHUNK_COLS})")
@@ -116,14 +135,20 @@ def check_chunks(jobs, chunks) -> None:
     if (C[:, C_ROW:] != J[job]).any():
         raise ValueError("chunks: a job row that differs from the jobs")
     uw, sh = J[job, J_UW], J[job, J_SH]
-    if ((cx < 0) | (cx >= uw) | (cx % WIENER_CW != 0) | (r0 < 0) | (nr < 1)
+    if ((cx < 0) | (cx >= uw) | (cx % cw != 0) | (r0 < 0) | (nr < 1)
             | (r0 + nr > sh)).any():
         raise ValueError("chunks: a chunk outside its unit")
+    if sgr and (r0 % 2).any():
+        raise ValueError("chunks: a self-guided band that starts on an odd "
+                         "unit row")
+    if sgr and (nr > SGR_SB).any():
+        raise ValueError(f"chunks: a self-guided band of more than {SGR_SB} "
+                         "rows")
     o = np.lexsort((r0, cx, job))
     same = (job[o][1:] == job[o][:-1]) & (cx[o][1:] == cx[o][:-1])
     if (same & (r0[o][1:] < (r0 + nr)[o][:-1])).any():
         raise ValueError("chunks: two bands overlap")
-    need = (-(-J[:, J_UW] // WIENER_CW) * J[:, J_SH]).sum()
+    need = (-(-J[:, J_UW] // cw) * J[:, J_SH]).sum()
     if nr.sum() != need:
         raise ValueError(f"chunks: {nr.sum()} chunk rows for {need}")
 
@@ -275,7 +300,7 @@ def sgr_plain(post, pre, jobs, bitdepth, out=None):
 
 # ---- wrappers -------------------------------------------------------------
 
-def _restore(post, pre, jobs, bitdepth, out, sgr, chunks=None):
+def _restore(post, pre, jobs, bitdepth, out, sgr, chunks):
     H, W = post.shape
     build.check(post, "post")
     build.check(pre, "pre", (H, W))
@@ -297,25 +322,21 @@ def _restore(post, pre, jobs, bitdepth, out, sgr, chunks=None):
             raise ValueError("chunks: not 16-byte aligned")
     if not build.on_cuda(*ts):
         if chunks is not None:
-            check_chunks(jobs.numpy(), chunks.numpy())
+            check_chunks(jobs.numpy(), chunks.numpy(), sgr)
         return _restore_plain(post, pre, jobs, bitdepth, out, sgr)
-    if not sgr and chunks is None:
-        raise ValueError("wiener on CUDA tensors needs the chunk table "
-                         "(chunks=)")
+    if chunks is None:
+        raise ValueError(f"{'sgr' if sgr else 'wiener'} on CUDA tensors "
+                         "needs the chunk table (chunks=)")
     out = post.clone() if out is None else out
-    n = jobs.shape[0]
-    if not n:
+    if not jobs.shape[0]:
         return out
+    tag, cfn = (("lr_sgr", build.lib().dtpu_lr_sgr) if sgr else
+                ("lr_wiener", build.lib().dtpu_lr_wiener))
     with torch.cuda.device(post.device):
-        lib, st = build.lib(), build.stream(post)
-        if sgr:
-            devrt.launch("lr_sgr", lib.dtpu_lr_sgr, post.data_ptr(),
-                         pre.data_ptr(), out.data_ptr(), H, W,
-                         jobs.data_ptr(), n, int(bitdepth), st)
-            return out
-        devrt.launch("lr_wiener", lib.dtpu_lr_wiener, post.data_ptr(),
-                     pre.data_ptr(), out.data_ptr(), H, W, chunks.data_ptr(),
-                     chunks.shape[0], int(bitdepth), st, keep=(chunks,))
+        devrt.launch(tag, cfn, post.data_ptr(), pre.data_ptr(),
+                     out.data_ptr(), H, W, chunks.data_ptr(),
+                     chunks.shape[0], int(bitdepth), build.stream(post),
+                     keep=(chunks,))
     return out
 
 
@@ -337,6 +358,9 @@ def wiener(post: torch.Tensor, pre: torch.Tensor, jobs: torch.Tensor,
 
 
 def sgr(post: torch.Tensor, pre: torch.Tensor, jobs: torch.Tensor,
-        bitdepth: int, out: torch.Tensor | None = None) -> torch.Tensor:
-    """The self-guided units ``jobs``, as :func:`wiener` takes them."""
-    return _restore(post, pre, jobs, bitdepth, out, True)
+        bitdepth: int, out: torch.Tensor | None = None,
+        chunks: torch.Tensor | None = None) -> torch.Tensor:
+    """The self-guided units ``jobs``, as :func:`wiener` takes them;
+    ``chunks``: ``chunk_table(jobs, sgr=True)`` (checked with
+    ``check_chunks(..., sgr=True)``)."""
+    return _restore(post, pre, jobs, bitdepth, out, True, chunks)

@@ -12,11 +12,12 @@ the resident tensors, in the reference order:
    CDEF return new tensors;
 3. CDEF (direction search on the resident luma, then the filter per
    plane);
-4. super-res (ops/resize.py) of the planes and of the snapshot, into
-   allocation-sized planes of the upscaled width;
+4. super-res (ops/resize.py) of the planes and of the snapshot, in one
+   launch, into allocation-sized planes of the upscaled width;
 5. loop restoration (ops/lr.py): the stripe geometry from
    recon/lr_apply.lr_frame(f, geom_sink=), one Wiener and one
-   self-guided launch per plane, into new planes.
+   self-guided launch per plane (each over its chunk table), into new
+   planes.
 
 The result is downloaded once, narrow: into ``f.planes``, or with
 super-res into new ``f.sr_planes`` (int32, allocation-sized, zero beyond
@@ -123,21 +124,23 @@ def _cdef(f, dev):
             f.layout == PixelLayout.I422)
 
 
-def _resize(f, dev):
-    """Super-res of each resident plane, in the allocation geometry of
-    decode/frame.superres_geometry (reference recon/device_chain.py
-    _resize_resident)."""
-    return [devrt.call("resize", oresize.resize_plane, p,
-                       *superres_geometry(f, pl), f.bitdepth)
-            for pl, p in enumerate(dev)]
+def _resize(f, planes):
+    """Super-res of the resident planes (the frame's, then the snapshot's
+    when loop restoration keeps one) in one launch, in the allocation
+    geometry of decode/frame.superres_geometry (reference
+    recon/device_chain.py _resize_resident)."""
+    n = len(f.planes)
+    return devrt.call("resize", oresize.resize_planes, planes,
+                      [superres_geometry(f, k % n) for k in
+                       range(len(planes))], f.bitdepth)
 
 
 def _lr(f, dev, pre):
     """Loop restoration of the resident planes from the post-CDEF planes
     ``dev`` and the snapshot ``pre`` (reference recon/device_chain.py
     _lr_resident): per plane, the Wiener units and then the self-guided
-    units, written into one new plane.  The job rows and the Wiener
-    kernel's chunk table go up in one copy."""
+    units, written into one new plane.  The job rows and the two
+    kernels' chunk tables go up in one copy."""
     geom = {}
     lr_frame(f, geom_sink=geom)
     dev = list(dev)
@@ -147,20 +150,24 @@ def _lr(f, dev, pre):
             continue
         devrt.COUNTS["lr_wiener_units"] += len(wj)
         devrt.COUNTS["lr_sgr_units"] += len(sj)
-        wc = olr.chunk_table(wj)
+        wc, sc = olr.chunk_table(wj), olr.chunk_table(sj, sgr=True)
         olr.check_chunks(wj, wc)
+        olr.check_chunks(sj, sc, sgr=True)
         n = wj.size + sj.size
         table = devrt.upload(np.concatenate([wj.ravel(), sj.ravel(),
-                                             wc.ravel()]), dev[pl].device)
+                                             wc.ravel(), sc.ravel()]),
+                             dev[pl].device)
         jobs = table[:n].view(-1, olr.JOB_COLS)
+        chunks = table[n:].view(-1, olr.CHUNK_COLS)
         out = None
         if len(wj):
             out = devrt.call("lr_wiener", olr.wiener, dev[pl], pre[pl],
                              jobs[:len(wj)], f.bitdepth,
-                             chunks=table[n:].view(-1, olr.CHUNK_COLS))
+                             chunks=chunks[:len(wc)])
         if len(sj):
             out = devrt.call("lr_sgr", olr.sgr, dev[pl], pre[pl],
-                             jobs[len(wj):], f.bitdepth, out=out)
+                             jobs[len(wj):], f.bitdepth, out=out,
+                             chunks=chunks[len(wc):])
         dev[pl] = out
     return dev
 
@@ -202,9 +209,9 @@ def filter_chain_device(f, device) -> None:
             _cdef(f, dev)
     if do_resize:
         with devrt.span("chain.resize"):
-            dev = _resize(f, dev)
-            if pre is not None:
-                pre = _resize(f, pre)
+            out = _resize(f, dev + (pre or []))
+            dev, pre = out[:len(dev)], (None if pre is None
+                                        else out[len(dev):])
     if do_lr:
         with devrt.span("chain.lr"):
             dev = _lr(f, dev, pre)

@@ -20,7 +20,9 @@ bit-exact.
   and run CTA by CTA, 256 threads in turn per phase (the Wiener kernel:
   a CTA per chunk table row, its row and column tables, then sub-band
   by sub-band the copies, the horizontal pass into the ring and the
-  vertical pass out of it), against the plain group functions on job
+  vertical pass out of it; the self-guided kernel: a CTA per row of its
+  own chunk table, the copies, the column sums, the (A, B) rows and the
+  filter), against the plain group functions on job
   tables with the stream's unit sizes (uw 128/192/256/384, stripe
   heights 28/32/56/64, several chunks a unit) and every edge
   combination, at 8/10/12-bit, the 12-bit self-guided case on extreme
@@ -29,11 +31,16 @@ bit-exact.
   rows,
   on units narrower than a 16-byte copy (1-3 columns) or a chunk (37,
   65) and stripes of 4, 13 and 28 rows, on planes whose rows take the
-  16-byte copies and on a plane whose rows do not; the header's x_by_x
-  table against tables.sgr_x_by_x;
-* the chunk table (:func:`chunk_table`) covers every output pixel once,
-  and :func:`check_chunks` refuses malformed tables (also through the
-  wrapper on CPU tensors).
+  16-byte copies and on a plane whose rows do not; the self-guided
+  kernel with bands of 16, 12, 8 and 4 rows and the wrapper's own
+  (16) on the same units, all 16 edge combinations, variants 0/1/2,
+  at 8/10/12-bit, the 12-bit case on extreme pixels; the header's
+  x_by_x table against tables.sgr_x_by_x;
+* both chunk tables (:func:`chunk_table`, ``sgr=True`` for the
+  self-guided one, whose bands start on even unit rows) cover every
+  output pixel once, and :func:`check_chunks` refuses malformed tables
+  (also through the wrappers on CPU tensors), the self-guided one also
+  a band that starts on an odd unit row or holds more than 16 rows.
 
 The plain versions are what the wrappers run on CPU tensors; the CUDA
 kernels are compared with them on the card by chip_smoke.py.
@@ -325,7 +332,7 @@ static void wiener(const lr::Planes& p, const int* chunks, int n_chunks,
     const int nt = lr::WIENER_THREADS;
     for (int ci = 0; ci < n_chunks; ci++) {
         lr::Band b;
-        lr::load_band(b, chunks, ci, p);
+        lr::load_band(b, chunks, ci, p, lr::WIENER_CW, false);
         counts[b.vec ? 0 : 1]++;
         memset(&s, 0x5A, sizeof s);  // shared memory starts undefined
         for (int t = 0; t < nt; t++) lr::wiener_setup(s, b, p, t);
@@ -339,34 +346,37 @@ static void wiener(const lr::Planes& p, const int* chunks, int n_chunks,
     }
 }
 
-// The self-guided kernel's CTAs in turn: every job, every chunk, each
-// phase run by 256 threads one after the other.
-static void sgr(const lr::Planes& p, const int* jobs, int n_jobs) {
+// The self-guided kernel (csrc/lr.cu lr_sgr_kernel) CTA by CTA, each
+// phase between two barriers run by the 256 threads one after the other;
+// counts as the Wiener kernel's.
+static void sgr(const lr::Planes& p, const int* chunks, int n_chunks,
+                int* counts) {
     static lr::SgrTile ss;
-    const int nt = 256;
-    for (int b = 0; b < n_jobs; b++)
-        for (int chunk = 0; chunk < lr::MAX_UW / lr::SGR_CW; chunk++) {
-            lr::Job j;
-            if (!lr::load_job(j, jobs + b * lr::JOB_COLS, chunk, lr::SGR_CW))
-                continue;
-            memset(&ss, 0x5A, sizeof ss);
-            for (int t = 0; t < nt; t++)
-                lr::stage(ss.win, lr::SGR_WS, j, p, t, nt);
-            for (int t = 0; t < nt; t++) lr::sgr_ab(ss, j, p.bd, t, nt);
-            for (int t = 0; t < nt; t++) lr::sgr_filter(ss, j, p, t, nt);
-        }
+    const int nt = lr::SGR_THREADS;
+    for (int ci = 0; ci < n_chunks; ci++) {
+        lr::Band b;
+        lr::load_band(b, chunks, ci, p, lr::SGR_CW, true);
+        counts[b.vec ? 0 : 1]++;
+        memset(&ss, 0x5A, sizeof ss);  // shared memory starts undefined
+        for (int t = 0; t < nt; t++) lr::sgr_setup(ss, t);
+        for (int t = 0; t < nt; t++) lr::sgr_issue(ss, b, p, t);
+        for (int t = 0; t < nt; t++) lr::sgr_vsum(ss, b, t);
+        for (int t = 0; t < nt; t++) lr::sgr_ab(ss, b, p.bd, t);
+        for (int t = 0; t < nt; t++) lr::sgr_filter(ss, b, p, t);
+    }
 }
 
 extern "C" void lr_host(const int* post, const int* pre, int* out, int H,
-                        int W, const int* jobs, int n_jobs,
-                        const int* chunks, int n_chunks, int sgr_,
+                        int W, const int* chunks, int n_chunks, int sgr_,
                         int bitdepth, int* counts) {
     const lr::Planes p{post, pre, out, H, W, bitdepth};
     if (sgr_)
-        sgr(p, jobs, n_jobs);
+        sgr(p, chunks, n_chunks, counts);
     else
         wiener(p, chunks, n_chunks, counts);
 }
+
+extern "C" int lr_sgr_tile_bytes() { return (int)sizeof(lr::SgrTile); }
 
 extern "C" int lr_ring_bytes() { return (int)sizeof(lr::WienerRing); }
 
@@ -390,7 +400,7 @@ def kernel_on_host(tmp_path_factory):
     assert r.returncode == 0, r.stderr[-3000:]
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.lr_host.argtypes = [P, P, P, I, I, P, I, P, I, I, I, P]
+    lib.lr_host.argtypes = [P, P, P, I, I, P, I, I, I, P]
     lib.lr_host.restype = None
     lib.lr_x_by_x_host.restype = ctypes.POINTER(ctypes.c_int)
     return lib
@@ -441,18 +451,18 @@ def test_kernel_source_on_host(kernel_on_host, kind, bitdepth, content):
 
 
 def _on_host(lib, post, pre, jobs, bitdepth, sgr=False, band=0):
-    """The host build over the job table (Wiener: its chunk table of
-    ``band``-row bands, 0 as the wrapper chooses them), into a copy of
-    ``post``; returns (plane, [bands staged by 16-byte copies, other
-    bands])."""
+    """The host build over the job table's chunk table (Wiener or, with
+    ``sgr``, self-guided) of ``band``-row bands (0: as the wrapper
+    chooses them), into a copy of ``post``; returns (plane, [bands staged
+    by 16-byte copies, other bands])."""
     H, W = post.shape
-    chunks = tlr.chunk_table(jobs, band)
-    tlr.check_chunks(jobs, chunks)
+    chunks = tlr.chunk_table(jobs, band, sgr=sgr)
+    tlr.check_chunks(jobs, chunks, sgr=sgr)
     counts = np.zeros(2, np.int32)
     got = post.copy()
     lib.lr_host(post.ctypes.data, pre.ctypes.data, got.ctypes.data, H, W,
-                jobs.ctypes.data, len(jobs), chunks.ctypes.data,
-                len(chunks), int(sgr), bitdepth, counts.ctypes.data)
+                chunks.ctypes.data, len(chunks), int(sgr), bitdepth,
+                counts.ctypes.data)
     return got, counts.tolist()
 
 
@@ -493,6 +503,44 @@ def test_wiener_bands_on_host(kernel_on_host, W, bitdepth, content, band):
     assert other > 0 and (vec > 0) == (W % 4 == 0)
 
 
+@pytest.mark.parametrize("band", [16, 12, 8, 4, 0])
+@pytest.mark.parametrize("variant", [0, 1, 2])
+@pytest.mark.parametrize("bitdepth,content", [(8, "smooth"),
+                                              (10, "random"),
+                                              (12, "extremes")])
+def test_sgr_bands_on_host(kernel_on_host, bitdepth, content, variant, band):
+    """The self-guided kernel with bands of ``band`` rows (0: the
+    wrapper's, 16 rows) equals the
+    plain group function, exactly, on narrow units and short or odd
+    stripes in all 16 edge combinations; on 16-byte aligned rows the
+    interior chunks take the 16-byte copies, the clamped ones the element
+    copies.  The 12-bit case on the extreme pixels, where z and A need
+    int64."""
+    W = 1000
+    rng = np.random.default_rng(bitdepth * 7 + variant + band)
+    geo, H = _grid(rng, NARROW_UNITS, W)
+    post = _pixels(rng, (H, W), bitdepth, content)
+    pre = _pixels(rng, (H, W), bitdepth, content)
+    n = len(geo)
+    sgr_idx = next(i for i, v in SGR if v == variant)
+    jobs = _jobs(rng, geo, np.concatenate(
+        [_sgr_params(rng, n, sgr_idx), np.full((n, 1), variant)], 1))
+    want = tlr.sgr_plain(torch.from_numpy(post), torch.from_numpy(pre),
+                         torch.from_numpy(jobs), bitdepth).numpy()
+    got, (vec, other) = _on_host(kernel_on_host, post, pre, jobs, bitdepth,
+                                 sgr=True, band=band)
+    np.testing.assert_array_equal(got, want)
+    assert vec > 0 and other > 0
+    assert (want != post).any()
+
+
+def test_sgr_tile_bytes_on_host(kernel_on_host):
+    """The self-guided CTA's shared memory (csrc/lr.cu's note): 20,880
+    bytes for a 16-row band, against the 46,544 of the whole-window
+    tile it replaces."""
+    assert kernel_on_host.lr_sgr_tile_bytes() == 20880
+
+
 def test_wiener_ring_bytes_on_host(kernel_on_host):
     """The Wiener CTA's shared memory (csrc/lr.cu's note): 30,024 bytes
     with sub-bands of 32 rows, against the 37,520 of the stage-then-filter
@@ -509,6 +557,16 @@ def test_wiener_on_cuda_needs_chunks(monkeypatch):
     monkeypatch.setattr(tlr.build, "on_cuda", lambda *ts: True)
     with pytest.raises(ValueError, match="chunk table"):
         tlr.wiener(post, post.clone(), jobs, 8)
+
+
+def test_sgr_on_cuda_needs_chunks(monkeypatch):
+    """The self-guided wrapper takes its chunk table as the Wiener one
+    does, and refuses to run on CUDA tensors without one."""
+    jobs = torch.from_numpy(_chunk_jobs())
+    post = torch.zeros((100, 400), dtype=torch.int32)
+    monkeypatch.setattr(tlr.build, "on_cuda", lambda *ts: True)
+    with pytest.raises(ValueError, match="chunk table"):
+        tlr.sgr(post, post.clone(), jobs, 8)
 
 
 # ---- the chunk table -----------------------------------------------------
@@ -593,3 +651,80 @@ def test_check_chunks_refuses(how):
     with pytest.raises(ValueError, match="chunks"):
         tlr.wiener(post, post.clone(), torch.from_numpy(jobs), 8,
                    chunks=torch.from_numpy(np.ascontiguousarray(bad)))
+
+
+def test_sgr_chunk_table_band_by_launch_size():
+    """Band 0 of the self-guided table is SGR_SB (16) rows at every
+    launch size: the stream's 16-unit call (256 x 28 / 32 units) gets
+    256 CTAs; a band longer than 16 rows is refused."""
+    assert tlr.SGR_SB == 16
+    one = _chunk_jobs()[:1]  # a 128 x 64 unit: 4 chunks of 32 columns
+    for n in (33, 32, 17, 16, 9, 8, 1):
+        c = tlr.chunk_table(np.repeat(one, n, 0), sgr=True)
+        assert c[:, tlr.C_NR].max() == 16, n
+        assert len(c) == n * 4 * 4
+    stream = _jobs(None, np.array([[256 * (1 + i % 2), 28 + 32 * (i // 2),
+                                    256, 32 if i > 1 else 28, 15, 540]
+                                   for i in range(16)]),
+                   np.zeros((16, 6), np.int64))
+    c = tlr.chunk_table(stream, sgr=True)
+    assert c[:, tlr.C_NR].max() == 16 and len(c) == 256
+    for band in (18, 32, 64):
+        with pytest.raises(ValueError, match="at most 16"):
+            tlr.chunk_table(stream, band, sgr=True)
+
+
+@pytest.mark.parametrize("band", [16, 12, 8, 4, 2])
+def test_sgr_chunk_table(band):
+    """One row per (unit, 32-column chunk, band), every band starting on
+    an even unit row, covering every output pixel of every unit once; an
+    odd band is refused."""
+    jobs = _chunk_jobs()
+    c = tlr.chunk_table(jobs, band, sgr=True)
+    tlr.check_chunks(jobs, c, sgr=True)
+    assert c.dtype == np.int32 and c.shape[1] == tlr.CHUNK_COLS
+    assert not (c[:, tlr.C_R0] % 2).any()
+    assert not (c[:, tlr.C_X] % tlr.SGR_CW).any()
+    cover = np.zeros((3, 64, 384), np.int32)
+    np.testing.assert_array_equal(c[:, tlr.C_ROW:], jobs[c[:, tlr.C_JOB]])
+    for job, cx, r0, nr in c[:, :tlr.C_ROW].tolist():
+        cw = min(tlr.SGR_CW, jobs[job, tlr.J_UW] - cx)
+        cover[job, r0:r0 + nr, cx:cx + cw] += 1
+    for j, (uw, sh) in enumerate(jobs[:, [tlr.J_UW, tlr.J_SH]].tolist()):
+        assert (cover[j, :sh, :uw] == 1).all()
+        assert cover[j].sum() == uw * sh
+    n_chunks = [4, 2, 12]
+    assert len(c) == sum(k * -(-sh // band) for k, sh in
+                         zip(n_chunks, jobs[:, tlr.J_SH]))
+    with pytest.raises(ValueError, match="even"):
+        tlr.chunk_table(jobs, band + 1, sgr=True)
+
+
+@pytest.mark.parametrize("how", ["odd start", "long band", "overlap",
+                                 "missing", "twice", "job row", "job",
+                                 "column", "past the stripe"])
+def test_sgr_check_chunks_refuses(how):
+    """check_chunks(sgr=True) refuses a band that starts on an odd unit
+    row, a band of more than 16 rows, an overlap, a gap, a repeated band,
+    a foreign job row, a job out of range, a column off the 32-column
+    grid and a band past the stripe; and so does the self-guided wrapper
+    on CPU tensors."""
+    jobs = _chunk_jobs()
+    c = tlr.chunk_table(jobs, 16, sgr=True)
+    if how == "odd start":
+        c[1, tlr.C_R0] += 1
+        c[1, tlr.C_NR] -= 1
+        c[0, tlr.C_NR] += 1
+    elif how == "long band":  # bands 0 and 1 of a chunk as one
+        c[0, tlr.C_NR] += c[1, tlr.C_NR]
+        c = np.delete(c, 1, 0)
+    elif how == "column":
+        c[0, tlr.C_X] = 16
+    else:
+        c = _broken(c, how)
+    with pytest.raises(ValueError, match="chunks"):
+        tlr.check_chunks(jobs, c, sgr=True)
+    post = torch.zeros((100, 400), dtype=torch.int32)
+    with pytest.raises(ValueError, match="chunks"):
+        tlr.sgr(post, post.clone(), torch.from_numpy(jobs), 8,
+                chunks=torch.from_numpy(np.ascontiguousarray(c)))
