@@ -62,7 +62,11 @@ Phases; any failure exits non-zero:
    extreme pixels; the walk (ipred_walk, every level of a chain in one
    launch) on six levels of prediction and palette units on the luma
    canvas and of all three kinds on the stacked chroma pair, and on 300
-   levels of 6 units), bit depths 8/10/12;
+   levels of 6 units), bit depths 8/10/12; K2's band form
+   (cdef_filter_band: the filter on a row band's canvas with 2 halo rows
+   of each neighbour) on every band of the 1080p luma and chroma planes
+   and of a 4:2:2-shaped chroma plane cut into 2, 4 and 8 bands as the
+   mesh cuts them;
 4. decode the committed 1080p 8-bit inter stream (the main path of the
    earlier kernels), the committed 10-bit stream and the two committed
    1080p loop-restoration streams (super-res + Wiener on every frame;
@@ -95,7 +99,23 @@ Phases; any failure exits non-zero:
    kernels (ipred, ipred_cfl, ipred_pal) from the same copy, both timed
    with CUDA events; a walk of 4,096 one-unit levels gives the latency
    floor of a level (one handoff through L2 plus the smallest unit);
+   the three 1080p chain streams (main, restoration, super-res +
+   restoration) with ``Settings(mesh=Mesh([cuda:0] * n))`` for n = 2
+   and 4 (row bands on the one card) against their md5s, frame by frame:
+   K1 once per band and direction with edges (every band with luma rows
+   among them), K5 once per band with luma rows, K2 once per band and
+   plane with units, the restoration kernels once per share holding
+   their units, and itx n times a frame; the halo bytes per frame are
+   printed; the seven streams again with ``Settings(n_threads=4)``
+   (worker threads: frames in flight at once), and the main stream with
+   n_threads=4 and a 2-band mesh, each against its md5 and the launches
+   of its decode with n_threads=0; the four small streams of the other
+   layouts (4:2:2 8-bit, 4:4:4 10-bit, 4:2:0 12-bit, monochrome) on one
+   device and with a 2-band mesh against their md5s;
 5. time the 1080p decode (frames/s, best of 3 after the warm-up decode),
+   and with a mesh of 2 and of 4 bands on the one card (best of 3, then
+   the stage spans of one more decode: bands on one card measure what
+   the band work costs, not scaling),
    then decode it once more with the stage spans and transfer counters
    on, capturing the MC, CDEF filter and itx kernels' real calls: each
    is held against the plain version (exact), and each itx call's jobs
@@ -140,7 +160,6 @@ import collections
 import functools
 import hashlib
 import json
-import struct
 import subprocess
 import sys
 import threading
@@ -171,6 +190,22 @@ INTRA_KERNELS = LEVEL_KERNELS + ("ipred_walk",)
 INTRA_STREAMS = (MAIN_STREAM, HBD_STREAM, SCREEN_STREAM)
 # the decode whose launches fg and the walk report: (stream, device_intra)
 PATH_OF = {"fg": (FG_STREAM, False), "ipred_walk": (MAIN_STREAM, True)}
+# multi-device decode (Settings.mesh): bands on the one card, decoded for
+# each count of bands on the three 1080p chain streams; K2's band form
+# reports the main stream's decode with MESH_PATH bands
+MESH_BANDS = (2, 4)
+MESH_STREAMS = (MAIN_STREAM, LR_STREAM, SR_STREAM)
+MESH_PATH = 2
+# K2's band form in phase 3: every band of these counts at 1080p
+BAND_CASE_BANDS = (2, 4, 8)
+# the layouts beside 4:2:0 (small streams, phase 4: single-device and
+# with a 2-band mesh)
+LAYOUT_STREAMS = ("i422_8bit_256x192.ivf", "i444_10bit_256x192.ivf",
+                  "i420_12bit_256x192.ivf", "mono_8bit_256x192.ivf")
+# decoded again with worker threads (Settings.n_threads)
+THREAD_STREAMS = (MAIN_STREAM, HBD_STREAM, SR_STREAM, LR_STREAM, FG_STREAM,
+                  FG_HBD_STREAM, SCREEN_STREAM)
+N_THREADS = 4
 # the stream whose walks give each per-level kernel its timed level
 LEVEL_STREAM = {"ipred": MAIN_STREAM, "ipred_cfl": MAIN_STREAM,
                 "ipred_pal": SCREEN_STREAM}
@@ -185,6 +220,10 @@ KERNELS = {
                  "dav1d_tpu/ops/cdef.py:159"),
     "cdef_filter": ("dav1d_tpu_torch/csrc/cdef_filter.cu",
                     "dav1d_tpu/ops/pallas_cdef.py:200"),
+    # the same kernel launched on a row band with halo rows (the mesh's
+    # CDEF, dav1d_tpu/recon/mesh_cdef.py:41 over ops/cdef.py:192)
+    "cdef_filter_band": ("dav1d_tpu_torch/csrc/cdef_filter.cu",
+                         "dav1d_tpu/ops/pallas_cdef.py:200"),
     "mc": ("dav1d_tpu_torch/csrc/mc.cu",
            "dav1d_tpu/ops/pallas_mc.py:164"),
     "itx": ("dav1d_tpu_torch/csrc/itx.cu",
@@ -206,7 +245,7 @@ KERNELS = {
                    "dav1d_tpu/recon/device_intra.py:260"),
 }
 # kernels that the main stream's default decode does not launch
-OTHER_PATHS = LR_KERNELS + ("fg",) + INTRA_KERNELS
+OTHER_PATHS = LR_KERNELS + ("fg",) + INTRA_KERNELS + ("cdef_filter_band",)
 
 # the card's peak rates for the bounds (H100 SXM data sheet, at 700 W):
 # device memory, and 32-bit scalar operations outside the tensor cores
@@ -315,6 +354,40 @@ def _units(rng, nb, nc, bitdepth):
 # (alloc rows, alloc cols, coded rows, coded cols)
 SHAPES = {"luma": (1088, 1920, 1080, 1920),
           "chroma": (544, 960, 540, 960)}
+
+
+def _band_cases(label, n, plane, pm, sm, maps, ph, pw, w, h, damping, bd,
+                luma, l422):
+    """K2's band form on every band with filtered rows of ``plane`` cut
+    into ``n`` bands as the mesh cuts it (mesh.Mesh.band_rows): the
+    band's canvas with 2 halo rows of each neighbour (none above the
+    first band, none below the band holding row ph - 1), its rows of the
+    unit grids and of the maps."""
+    import torch
+
+    from dav1d_tpu_torch.ops import cdef as ocdef
+
+    H, W = plane.shape
+    bh = mesh_of(plane.device, n).band_rows(ph)
+    out = []
+    for b in range(n):
+        y0 = b * bh
+        if y0 >= ph:
+            continue
+        top, bottom = 2 if b else 0, 2 if y0 + bh < ph else 0
+        canvas = torch.zeros((top + bh + bottom, W), dtype=torch.int32,
+                             device=plane.device)
+        rows = plane[y0 - top:min(H, y0 + bh + bottom)]
+        canvas[:rows.shape[0]] = rows
+        ph_b = min(bh, ph - y0)
+        u0, nb = y0 // h, -(-ph_b // h)
+        out.append((
+            f"{label}: band {b} top {top} bottom {bottom} bd{bd}",
+            ocdef.filter_plane, ocdef.filter_plane_plain,
+            (canvas, pm[u0:u0 + nb], sm[u0:u0 + nb],
+             maps[0][u0:u0 + nb], maps[1][u0:u0 + nb], ph_b, pw, w, h,
+             damping, bd, luma, l422, top, bottom)))
+    return out
 
 
 def _mc_args(rng, device, bitdepth, shapes=SHAPES, n_refs=3, per=8,
@@ -987,6 +1060,23 @@ def make_cases(device, shapes=SHAPES, seed=0):
                 ocdef.filter_plane_plain,
                 (dev(plane), *maps, *dmaps, ph, pw, 4, 8, damping, bd,
                  False, True)))
+        # K2's band form at the mesh's 1080p band geometry: every band of
+        # the 4:2:0 luma and chroma planes and of a 4:2:2-shaped chroma
+        # plane, cut into 2, 4 and 8 bands (recon/mesh_cdef.py)
+        for kind, (H, W, ph, pw), w, h, l422 in (
+                ("luma", shapes["luma"], 8, 8, False),
+                ("chroma", shapes["chroma"], 4, 4, False),
+                ("chroma 4:2:2", shapes["luma"][:1] + shapes["chroma"][1:2]
+                 + shapes["luma"][2:3] + shapes["chroma"][3:], 4, 8, True)):
+            luma = kind == "luma"
+            plane = dev(_plane(rng, H, W, bd))
+            pm, sm = (dev(m) for m in _units(rng, -(-ph // h), -(-pw // w),
+                                              bd))
+            damping = 3 + int(rng.integers(0, 4)) + bd - 8 - (not luma)
+            for n in BAND_CASE_BANDS:
+                cases["cdef_filter_band"] += _band_cases(
+                    f"{kind} {n} bands", n, plane, pm, sm, dmaps, ph, pw,
+                    w, h, damping, bd, luma, l422)
         cases["mc"].append((
             f"3 refs x 3 planes, all sizes bd{bd}", omc.put_8tap_resident,
             omc.put_8tap_resident_plain, _mc_args(rng, device, bd, shapes)))
@@ -1091,27 +1181,28 @@ def compare_kernels(cases, sync):
 
 # ---- decode ------------------------------------------------------------
 
-def read_ivf(data):
-    """Temporal units of an IVF file (32-byte header, then 12-byte frame
-    headers: size, pts)."""
-    _require(data[:4] == b"DKIF", "not an IVF file")
-    pos = struct.unpack_from("<H", data, 6)[0]
-    while pos + 12 <= len(data):
-        size = struct.unpack_from("<I", data, pos)[0]
-        yield data[pos + 12:pos + 12 + size]
-        pos += 12 + size
+def mesh_of(device, bands):
+    """``bands`` row bands on ``device`` (Settings.mesh), or None for 0."""
+    from dav1d_tpu_torch.mesh import Mesh
+
+    return Mesh([device] * bands) if bands else None
 
 
-def decode(data, device, hashing=True, device_intra=False):
-    """Decode an IVF stream with the port's public API; returns
-    (frames, md5 over every plane of every picture, inter frames)."""
+def decode(data, device, hashing=True, device_intra=False, bands=0,
+           n_threads=0):
+    """Decode an IVF stream with the port's public API (``bands``: a mesh
+    of that many bands on ``device``; ``n_threads``: Settings.n_threads);
+    returns (frames, md5 over every plane of every picture, inter
+    frames)."""
+    from dav1d_tpu_torch.containers import read_ivf
     from dav1d_tpu_torch.decoder import Decoder, Settings
 
-    dec = Decoder(Settings(two_pass=True, max_frame_delay=4), device=device,
-                  device_intra=device_intra)
+    dec = Decoder(Settings(two_pass=True, max_frame_delay=4,
+                           mesh=mesh_of(device, bands), n_threads=n_threads),
+                  device=device, device_intra=device_intra)
     h = hashlib.md5()
     n = n_inter = 0
-    for tu in read_ivf(data):
+    for tu, _ in read_ivf(data):
         dec.send_data(tu)
         while (pic := dec.get_picture()) is not None:
             if hashing:
@@ -1123,14 +1214,19 @@ def decode(data, device, hashing=True, device_intra=False):
     return n, h.hexdigest(), n_inter
 
 
-def decode_checked(name, device, device_intra=False):
+def decode_checked(name, device, device_intra=False, bands=0,
+                   n_threads=0):
     """Decode a committed stream, check its md5; returns (frames, inter
     frames)."""
     want = json.loads((DATA / "md5.json").read_text())[name]
     n, md5, n_inter = decode((DATA / name).read_bytes(), device,
-                             device_intra=device_intra)
-    print(f"  {name}{' device_intra' if device_intra else ''}: {n} frames "
-          f"({n_inter} inter) md5 {md5} (want {want['md5']})", flush=True)
+                             device_intra=device_intra, bands=bands,
+                             n_threads=n_threads)
+    how = (" device_intra" if device_intra else "") + \
+        (f" mesh of {bands} bands" if bands else "") + \
+        (f" n_threads={n_threads}" if n_threads else "")
+    print(f"  {name}{how}: {n} frames ({n_inter} inter) md5 {md5} (want "
+          f"{want['md5']})", flush=True)
     _require((n, md5) == (want["frames"], want["md5"]),
              f"{name}: decoded {n} frames md5 {md5}, want "
              f"{want['frames']} frames md5 {want['md5']}")
@@ -1384,11 +1480,17 @@ def work(name, args):
         # per pixel: 8 partial-sum adds, shift, offset; per block: the 90
         # cost bins (square, weight, add) and the argmax
         return plane.numel() * 4 + 2 * nb * 4, nb * (64 * 10 + 290)
-    if name == "cdef_filter":
+    if name in ("cdef_filter", "cdef_filter_band"):
         plane, pm, sm, dmap, vmap = args[:5]
-        w, h = args[7], args[8]
-        nbytes = (2 * plane.numel() + pm.numel() + sm.numel() + dmap.numel()
-                  + vmap.numel()) * 4
+        w, h, luma = args[7], args[8], args[11]
+        # the band form reads its halo rows and writes its rows alone
+        halo = sum(args[13:15]) * plane.shape[1]
+        # the map words of the units the grids hold (a direction per
+        # unit, and a variance in luma), not the maps' whole extent
+        maps = (min(pm.shape[0], dmap.shape[0])
+                * min(pm.shape[1], dmap.shape[1]) * (2 if luma else 1))
+        nbytes = (2 * plane.numel() - halo + pm.numel() + sm.numel()
+                  + maps) * 4
         active = int(torch.count_nonzero(pm | sm)) * w * h
         # per filtered pixel: 12 taps, each a constrain (~8 operations)
         return nbytes, active * 100
@@ -1909,6 +2011,46 @@ def check_lr_frames(name, frames, n):
                      f"plane uploads {fr['uploads']}")
 
 
+def check_mesh_frames(name, frames, n, bands, ph, bh):
+    """A mesh decode's frame-by-frame launch checks (phase 4): per frame,
+    K1 once per band and direction with edges, every band with filtered
+    luma rows among them; K5 once per band with filtered luma rows where
+    the frame searches directions; K2 (whole-plane and band form) once
+    per band and plane with units; the restoration kernels once per
+    share holding their units, every share of a plane holding some.
+    ``ph``: the luma plane's rows, ``bh``: its bands' rows.  Returns the
+    halo bytes of each frame."""
+    _require(len(frames) == n, f"{name}: {len(frames)} chain runs for "
+             f"{n} frames")
+    live = -(-ph // bh)
+    halo = []
+    for i, fr in enumerate(frames):
+        k, u = fr["launches"], fr["units"]
+        where = f"{name} mesh of {bands} frame {i}"
+        for d in ("v", "h"):
+            got, want = k.get(f"deblock_{d}", 0), \
+                u.get(f"mesh_deblock_{d}_bands", 0)
+            _require(got == want >= live, f"{where}: {got} deblock_{d} "
+                     f"launches for {want} bands with edges, want every "
+                     f"one of the {live} bands with luma rows among them")
+        got, want = k.get("cdef_dir", 0), u.get("mesh_cdef_dir_bands", 0)
+        _require(got == want in (0, live), f"{where}: {got} cdef_dir "
+                 f"launches, {want} bands searched, {live} luma bands")
+        got = k.get("cdef_filter", 0) + k.get("cdef_filter_band", 0)
+        want = u.get("mesh_cdef_bands", 0)
+        _require(got == want >= 1, f"{where}: {got} CDEF filter launches "
+                 f"for {want} bands and planes with units")
+        for kind in ("wiener", "sgr"):
+            got = k.get(f"lr_{kind}", 0)
+            want = u.get(f"mesh_lr_{kind}_shares", 0)
+            units = u.get(f"lr_{kind}_units", 0)
+            _require(got == want >= min(units, bands), f"{where}: {got} "
+                     f"lr_{kind} launches for {want} shares holding "
+                     f"{units} units")
+        halo.append(u.get("halo_bytes", 0))
+    return halo
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2102,6 +2244,67 @@ def main() -> int:
           f"unit): {floor['pal'] * 1e3:.3f} us (4x4 palette), "
           f"{floor['pred'] * 1e3:.3f} us (4x4 DC_128 prediction)",
           flush=True)
+    # multi-device decode: 2 and 4 bands on the card (Settings.mesh), frame
+    # by frame through the chain, launch counts zeroed before each decode
+    md5s = json.loads((DATA / "md5.json").read_text())
+    mesh_report = {}
+    mesh_totals = {}
+    for name in MESH_STREAMS:
+        ph = md5s[name]["height"]
+        for bands in MESH_BANDS:
+            devrt.LAUNCHES.clear()
+            devrt.COUNTS.clear()
+            with ChainLog() as log:
+                n_m, _ = decode_checked(name, device, bands=bands)
+            got = dict(devrt.LAUNCHES)
+            counts = dict(devrt.COUNTS)
+            halo = check_mesh_frames(name, log.frames, n_m, bands, ph,
+                                     mesh_of(device, bands).band_rows(ph))
+            _require(got.get("itx", 0) == counts.get("mesh_itx_shares", 0)
+                     == bands * n_m, f"{name} mesh of {bands}: "
+                     f"{got.get('itx', 0)} itx launches, "
+                     f"{counts.get('mesh_itx_shares', 0)} shares, want "
+                     f"{bands} a frame")
+            mesh_totals[(name, bands)] = got
+            mesh_report[f"{name} bands={bands}"] = {
+                "launches": got, "halo_bytes_per_frame": halo,
+                "counts": {k: v for k, v in counts.items()
+                           if k.startswith("mesh_")}}
+            print(f"  {name} mesh of {bands}: launches {got}; halo bytes "
+                  f"per frame {halo}; band work "
+                  f"{mesh_report[f'{name} bands={bands}']['counts']}",
+                  flush=True)
+            if (name, bands) == (MAIN_STREAM, MESH_PATH):
+                launches["cdef_filter_band"] = got.get("cdef_filter_band", 0)
+    _require(launches["cdef_filter_band"] >= 1, "cdef_filter_band: no "
+             f"launch in the {MAIN_STREAM} mesh decode")
+    # worker threads (Settings.n_threads): the same md5s and, over the
+    # decode, the same launches as one after the other (the frame-by-frame
+    # records above need frames that finish in order, so none here)
+    threads_report = {}
+    for name, bands in [(s_, 0) for s_ in THREAD_STREAMS] + \
+            [(MAIN_STREAM, MESH_PATH)]:
+        if bands:
+            alone = mesh_totals[(name, bands)]
+        else:
+            devrt.LAUNCHES.clear()
+            decode_checked(name, device)
+            alone = dict(devrt.LAUNCHES)
+        devrt.LAUNCHES.clear()
+        decode_checked(name, device, bands=bands, n_threads=N_THREADS)
+        got = dict(devrt.LAUNCHES)
+        _require(got == alone, f"{name} n_threads={N_THREADS}"
+                 f"{f' mesh of {bands}' if bands else ''}: launches {got}, "
+                 f"{alone} with n_threads=0")
+        threads_report[f"{name} bands={bands}"] = sum(got.values())
+    print(f"  n_threads={N_THREADS}: md5s and launches as with 0 "
+          f"(launches per decode: {threads_report})", flush=True)
+    # the other layouts, one device and a 2-band mesh
+    for name in LAYOUT_STREAMS:
+        for bands in (0, 2):
+            devrt.LAUNCHES.clear()
+            decode_checked(name, device, bands=bands)
+            print(f"    launches {dict(devrt.LAUNCHES)}", flush=True)
 
     print("== 5. timing", flush=True)
     runs = []
@@ -2113,6 +2316,28 @@ def main() -> int:
     print(f"  {MAIN_STREAM}: {fps:.3f} frames/s (best of 3 after the "
           f"warm-up decode; runs {[round(r, 3) for r in runs]}) on "
           f"{card}", flush=True)
+    # the mesh decode: bands on one card, so no scaling measurement; what
+    # the band work and the halo exchanges cost beside one device
+    mesh_fps = {}
+    for bands in MESH_BANDS:
+        mruns = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            n, _, _ = decode(data, device, hashing=False, bands=bands)
+            mruns.append(n / (time.perf_counter() - t0))
+        # and once more with the stage spans on
+        devrt.SPANS = {}
+        n, _, _ = decode(data, device, hashing=False, bands=bands)
+        mspans, devrt.SPANS = devrt.SPANS, None
+        mesh_fps[bands] = {"fps": max(mruns), "runs": mruns,
+                           "stage_ms_per_frame": {
+                               k: round(v * 1e3 / n, 3)
+                               for k, v in sorted(mspans.items())}}
+        print(f"  {MAIN_STREAM} mesh of {bands} bands on the one card: "
+              f"{max(mruns):.3f} frames/s (best of 3; runs "
+              f"{[round(r, 3) for r in mruns]}; one device {fps:.3f}) on "
+              f"{card}; stages (ms) "
+              f"{mesh_fps[bands]['stage_ms_per_frame']}", flush=True)
     # one more decode with the stage spans and transfer counters on,
     # capturing the MC and itx kernels' calls
     devrt.SPANS, devrt.XFER, devrt.SINK = {}, {"up": 0, "down": 0}, []
@@ -2126,6 +2351,7 @@ def main() -> int:
     cdef_calls = [args for name, args in calls if name == "cdef_filter"]
     devrt.SPANS = devrt.XFER = devrt.SINK = None
     stages = {k: round(v * 1e3 / n, 3) for k, v in sorted(spans.items())}
+    xfer_frame = {k: v // n for k, v in xfer.items()}
     print(f"  per frame: wall {wall * 1e3 / n:.3f} ms, stages (ms) "
           f"{stages}, upload {xfer['up'] // n} B, download "
           f"{xfer['down'] // n} B", flush=True)
@@ -2497,12 +2723,13 @@ def main() -> int:
     _require(not _jax_modules(), f"jax was imported: {_jax_modules()}")
     print(json.dumps({"decode_fps": fps, "decode_fps_runs": runs,
                       "stage_ms_per_frame": stages, "stream": MAIN_STREAM,
-                      "xfer_bytes_per_frame": {k: v // n
-                                               for k, v in xfer.items()},
+                      "xfer_bytes_per_frame": xfer_frame,
                       "bound_ms_per_frame": frame_bound,
                       "mc_tile_list_host_ms_per_frame": tl_ms,
                       "itx_calls": itx_stats, "itx_occupancy": occ,
                       "restoration_streams": lr_report,
+                      "mesh_fps": mesh_fps, "mesh_decodes": mesh_report,
+                      "threads_launches": threads_report,
                       "grain": grain_report,
                       "bound_ms_per_frame_k9_walk": path_bound,
                       "device_intra": {

@@ -16,6 +16,12 @@
 //   _SENT16): the min ignores it, the max does not (it is below every
 //   pixel, so it never wins the max either), and its constraint is that
 //   of any tap (0 for every damping the codec allows);
+// * band form (a row band of a plane, recon/mesh_cdef.py): src holds
+//   `top` halo rows above the band's rows and `bot` below them, and
+//   rows, units, maps and dst are in the band's own coordinates (src
+//   points at the band's row 0); a tap in rows [-top, 0) or
+//   [ph, ph + bot) reads the halo's pixel, and every other tap outside
+//   (ph, pw) the sentinel.  The whole plane is the band with no halo;
 // * constrain(d, s, sh) = sign(d) * min(|d|, max(0, s - (|d| >> sh)));
 //   primary weights 4/3 (k=0) and 2/3 (k=1) by strength parity,
 //   secondary weights 2 and 1; out = px + ((sum - (sum < 0) + 8) >> 4),
@@ -36,7 +42,8 @@
 //   units   one item per unit: its strengths, direction, shifts and
 //           weights; returns whether any of the thread's units is active;
 //   stage   the tile and a 2-pixel halo, the sentinel where a tap lies
-//           outside (ph, pw), with 16-byte loads where the row allows;
+//           outside (ph, pw) and the band's halo rows, with 16-byte loads
+//           where the row allows;
 //   filter  one item per 4 neighbouring pixels of a tile row (one unit:
 //           units are 4 or 8 wide), taps from shared memory, a 16-byte
 //           store where the row allows;
@@ -86,9 +93,10 @@ CDEF_CONST signed char UV_DIRS[2][8] = {{0, 1, 2, 3, 4, 5, 6, 7},
 
 // One plane's launch parameters (the arguments of dtpu_cdef_filter).
 struct Plane {
-    const int* src;
-    int* dst;
+    const int* src;     // the band's row 0: rows -top .. H + bot - 1
+    int* dst;           // (H, W)
     int H, W, ph, pw;
+    int top, bot;       // halo rows above row 0 and below row ph - 1
     const int* pm;      // (nbands, ncols) unit strength grids
     const int* sm;
     int nbands, ncols;
@@ -120,6 +128,11 @@ CDEF_FN int ulog2(int v) {  // floor(log2(v)) for v >= 1
 }
 
 CDEF_FN int imin(int a, int b) { return a < b ? a : b; }
+
+// whether row y of the band (or of its halo) holds pixels
+CDEF_FN bool row_in(const Plane& p, int y) {
+    return y >= -p.top && y < p.ph + p.bot;
+}
 CDEF_FN int imax(int a, int b) { return a > b ? a : b; }
 CDEF_FN unsigned umin(unsigned a, unsigned b) { return a < b ? a : b; }
 
@@ -207,12 +220,12 @@ CDEF_FN void stage(Tile& s, const Plane& p, int y0, int x0, int tid, int nt) {
             const int r = i / CHUNKS, x = x0 + (i % CHUNKS) * 4;
             const int y = y0 - HALO + r;
             int* d = s.px + r * SW + HALO + (x - x0);
-            if (y >= 0 && y < p.ph && p.vec && x + 3 < p.pw) {
+            if (row_in(p, y) && p.vec && x + 3 < p.pw) {
                 int v[4];
                 load4(p.src + (long long)y * p.W + x, v);
                 for (int k = 0; k < 4; k++) d[k] = v[k];
             } else {
-                const bool row = y >= 0 && y < p.ph;
+                const bool row = row_in(p, y);
                 for (int k = 0; k < 4; k++)
                     d[k] = row && x + k < p.pw
                                ? CDEF_LDG(p.src + (long long)y * p.W + x + k)
@@ -222,7 +235,7 @@ CDEF_FN void stage(Tile& s, const Plane& p, int y0, int x0, int tid, int nt) {
             const int j = i - n_in, r = j >> 2, c = j & 3;
             const int sc = c < HALO ? c : TILE_W + c;  // staged column
             const int y = y0 - HALO + r, x = x0 - HALO + sc;
-            const bool in = y >= 0 && y < p.ph && x >= 0 && x < p.pw;
+            const bool in = row_in(p, y) && x >= 0 && x < p.pw;
             s.px[r * SW + sc] =
                 in ? CDEF_LDG(p.src + (long long)y * p.W + x) : SENT;
         }

@@ -63,23 +63,29 @@ int log2_unit(int v) { return v == 4 ? 2 : (v == 8 ? 3 : -1); }
 
 }  // namespace
 
-// CDEF over an (H, W) int32 plane into dst.  pm/sm: (nbands, ncols) unit
-// strength grids, nbands = ceil(ph / uh), ncols = ceil(pw / uw), units
-// 4 or 8 on a side; dmap / vmap: (R8, W8) direction / variance maps of
-// the luma plane; layout_422 picks the chroma direction remap.  Returns
-// cudaError_t.
+// CDEF of the H rows of a band of an int32 plane into dst (H, W).  src:
+// the band's canvas of top + H + bot rows, its top and bot halo rows
+// around the band's (0 or 2 each; 0 and 0 for a whole plane).  pm/sm:
+// (nbands, ncols) unit strength grids, nbands = ceil(ph / uh), ncols =
+// ceil(pw / uw), units 4 or 8 on a side; dmap / vmap: (R8, W8) direction
+// / variance maps of the luma plane, from the band's first unit row;
+// layout_422 picks the chroma direction remap.  Returns cudaError_t.
 DTPU_API int dtpu_cdef_filter(const int* src, int* dst, int H, int W, int ph,
-                              int pw, const int* pm, const int* sm,
-                              int ncols, const int* dmap, const int* vmap,
-                              int R8, int W8, int uw, int uh, int damping,
-                              int bitdepth, int luma, int layout_422,
-                              void* stream) {
+                              int pw, int top, int bot, const int* pm,
+                              const int* sm, int ncols, const int* dmap,
+                              const int* vmap, int R8, int W8, int uw,
+                              int uh, int damping, int bitdepth, int luma,
+                              int layout_422, void* stream) {
     const int lw = log2_unit(uw), lh = log2_unit(uh);
-    if (lw < 0 || lh < 0) return (int)cudaErrorInvalidValue;
+    if (lw < 0 || lh < 0 || top < 0 || top > cdef::HALO || bot < 0 ||
+        bot > cdef::HALO || (bot && ph != H))
+        return (int)cudaErrorInvalidValue;
+    src += (long long)top * W;
     const bool aligned = ((uintptr_t)src | (uintptr_t)dst) % 16 == 0;
-    const cdef::Plane p{src, dst, H, W, ph, pw, pm, sm, (ph + uh - 1) / uh,
-                        ncols, dmap, vmap, R8, W8, lw, lh, damping,
-                        bitdepth - 8, luma, layout_422 ? 1 : 0,
+    const cdef::Plane p{src, dst, H, W, ph, pw, top, bot, pm, sm,
+                        (ph + uh - 1) / uh, ncols, dmap, vmap, R8, W8, lw,
+                        lh, damping, bitdepth - 8, luma,
+                        layout_422 ? 1 : 0,
                         (W % 4 == 0 && aligned) ? 1 : 0};
     const dim3 blocks(dtpu_blocks(W, cdef::TILE_W), dtpu_blocks(H, cdef::TILE_H));
     cdef_filter_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(p);

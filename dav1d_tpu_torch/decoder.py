@@ -14,6 +14,12 @@ later frames.  The device defaults to ``"cuda"``; without CUDA the
 constructor raises instead of running on the CPU.  The CPU tests pass
 ``device="cpu"``.  Film grain runs there at output (recon/filmgrain.py).
 
+``Settings(mesh=Mesh(devices))`` (mesh.py) spreads the frame's inverse
+transforms, deblock, CDEF and loop restoration over several devices as
+row bands of the resident planes and shares of the unit work; with
+``Mesh(devices, group=pg)`` over the ranks of a torch.distributed
+process group.  The output is the single-device decode's, bit for bit.
+
 ``device_intra=True`` moves phase B of pass 2, the ordered intra walk,
 to the device as well (recon/device_intra.py: wavefront levels of
 prediction units, one kernel launch per level and kind).  It is off by
@@ -67,6 +73,11 @@ class Settings:
     # two-pass host/device pipeline: pass 1 entropy+capture, pass 2
     # batched device reconstruction + ordered replay
     two_pass: bool = False
+    # multi-device decode (mesh.Mesh, reference decoder.py:55): row bands
+    # of the resident planes, and shares of the itx and restoration work,
+    # over the mesh's devices or ranks.  Forces two-pass and a frame
+    # delay of 2; the mesh's first device must be the decoder's device
+    mesh: object = None
     # pluggable logger (reference Dav1dLogger, include/dav1d/dav1d.h:48):
     # a callable taking one formatted message string; None silences.
     # Decode errors still raise — the logger reports them (and non-fatal
@@ -158,31 +169,27 @@ class _TileGroup:
     tile_end: int
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises when it is a CUDA device and
-    CUDA is not available (no silent CPU run)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but CUDA is not "
-                               "available (pass device='cpu' to run the "
-                               "plain PyTorch versions)")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
 class Decoder:
     """Single-threaded decode pipeline (frame threading and the device
     batch pipeline layer on top of this state machine)."""
 
     def __init__(self, settings: Settings | None = None, device="cuda",
                  device_intra: bool = False):
-        self.device = resolve_device(device)
+        self.device = devrt.resolve_device(device)
         self.device_intra = bool(device_intra)
         self.settings = settings or Settings()
+        mesh = self.settings.mesh
+        # a mesh runs the bands' work between the passes
+        self._two_pass = self.settings.two_pass or mesh is not None
+        if mesh is not None:
+            if mesh.devices[0] != self.device:
+                raise ValueError(f"the mesh's first device {mesh.devices[0]}"
+                                 f" is not the decoder's device "
+                                 f"{self.device}")
+            if mesh.group is not None and self.settings.n_threads >= 2:
+                # frames finishing on several threads would issue the
+                # collectives in a different order on each rank
+                raise ValueError("a process-group mesh needs n_threads < 2")
         self.strict_std_compliance = self.settings.strict_std_compliance
         self.seq_hdr = None
         self.frame_hdr = None
@@ -449,14 +456,14 @@ class Decoder:
         f.n_threads = self.settings.n_threads
         f.device = self.device
         f.device_intra = self.device_intra
+        f.mesh = self.settings.mesh
         f._props = self._cur_props
-        two_pass = self.settings.two_pass
-        if not two_pass:
+        if not self._two_pass:
             # fused reconstruction reads ref pixels during pass 1 —
             # cannot overlap with unfinished frames
             self._drain_pending()
         with devrt.span("pass1"):
-            decode_frame_pass1(f, self.tile_groups, two_pass=two_pass)
+            decode_frame_pass1(f, self.tile_groups, two_pass=self._two_pass)
 
         # reference state update with the PASS-1 products (reference
         # src/decode.c:3669-3695).  Fresh slot objects: earlier
@@ -494,7 +501,7 @@ class Decoder:
             # overlap device residual batches with the next pass 1;
             # with a worker pool, enough to keep every frame context
             # busy (reference get_frame_delay, src/lib.c:118-126)
-            delay = 2 if self.settings.two_pass else 1
+            delay = 2 if self._two_pass else 1
             delay = max(delay, self.n_fc + 1)
         self._collect_futures(wait=False)
         while len(self._pending) + len(self._futures) > delay:

@@ -28,13 +28,23 @@ kernel launch through :func:`launch`, every upload through
   kind), ``intra_{pred,cfl,pal}_levels`` (the levels holding units of
   each kind), ``intra_walk_launches`` (its walk launches: one per chain
   holding units) and ``intra_host_frames`` (the frames it handed to the
-  host walk).
+  host walk); with a mesh (mesh.py), ``halo_bytes`` (the halo rows the
+  bands received: deblock's post-vertical rows and written-back rows,
+  CDEF's pre-filter rows) and, per kind of band work, the bands or
+  shares that launched it: ``mesh_deblock_v_bands``,
+  ``mesh_deblock_h_bands``, ``mesh_cdef_dir_bands``,
+  ``mesh_cdef_bands``, ``mesh_itx_shares``, ``mesh_lr_wiener_shares``,
+  ``mesh_lr_sgr_shares``.
+
+``XFER["mesh"]`` counts the bytes a mesh (mesh.Mesh.gather) moved
+between devices or ranks.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import threading
 import time
 
 import numpy as np
@@ -46,6 +56,7 @@ XFER = None
 SPANS = None
 LAUNCHES: collections.Counter = collections.Counter()
 COUNTS: collections.Counter = collections.Counter()
+_LAUNCH_LOCK = threading.Lock()
 
 
 def call(tag, fn, *args, **kw):
@@ -69,7 +80,8 @@ def launch(tag, cfn, *args, keep=None) -> None:
 
         raise RuntimeError(f"{tag}: CUDA launch failed: {rc} "
                            f"({error_string(rc)})")
-    LAUNCHES[tag] += 1
+    with _LAUNCH_LOCK:  # worker threads launch too (Settings.n_threads)
+        LAUNCHES[tag] += 1
 
 
 @contextlib.contextmanager
@@ -133,3 +145,20 @@ def narrow_cast(bitdepth: int):
     (10/12-bit) fewer bytes."""
     dt = torch.uint8 if bitdepth == 8 else torch.int16
     return lambda p: p.to(dt)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device, a CUDA one with its index; raises
+    when it is a CUDA device and CUDA is not available (no silent CPU
+    run), and on any device that is neither CPU nor CUDA."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {str(device)!r} requested but CUDA "
+                               "is not available (pass device='cpu' to "
+                               "run the plain PyTorch versions)")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -113,10 +113,10 @@ _SIGNATURES = {
     "dtpu_deblock": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # plane, H, W, bitdepth, bin_weights, dir, var, stream
     "dtpu_cdef_dir": [_P, _I, _I, _I, _P, _P, _P, _P],
-    # src, dst, H, W, ph, pw, pm, sm, ncols, dmap, vmap, R8, W8, uw, uh,
-    # damping, bitdepth, luma, layout_422, stream
-    "dtpu_cdef_filter": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
-                         _I, _I, _I, _I, _I, _I, _I, _P],
+    # src, dst, H, W, ph, pw, top, bot, pm, sm, ncols, dmap, vmap, R8, W8,
+    # uw, uh, damping, bitdepth, luma, layout_422, stream
+    "dtpu_cdef_filter": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P,
+                         _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # table, jobs, tiles, n_tiles, out, bitdepth, stream
     "dtpu_mc_put_8tap": [_P, _P, _P, _I, _P, _I, _P],
     # cf, jobs, groups, n_groups, out, bitdepth, stream

@@ -11,7 +11,9 @@ Two operations, each a plain PyTorch version plus a CUDA kernel wrapper
   unit strength grids and the direction/variance maps
   (:func:`filter_plane`; kernel ``csrc/cdef_filter.cu`` with its
   arithmetic in ``csrc/cdef_core.cuh``, replacing pallas_cdef._build with
-  _jit_plane_resident's derivation).
+  _jit_plane_resident's derivation), or of a row band of a plane with 2
+  halo rows of each neighbour (its band form, which the mesh's CDEF
+  runs, recon/mesh_cdef.py; replacing mesh_cdef._band_program).
 
 Reference: src/cdef_tmpl.c:56-321, src/cdef_apply_tmpl.c.
 """
@@ -132,8 +134,9 @@ def _unit_params(pm, dmap, vmap, luma, layout_422):
 
 
 def filter_plane_plain(plane, pm, sm, dmap, vmap, ph, pw, w, h, damping,
-                       bitdepth, luma, layout_422):
-    """CDEF of one plane in plain PyTorch (see :func:`filter_plane`)."""
+                       bitdepth, luma, layout_422, top=0, bottom=0):
+    """CDEF of one plane, or of a band with halo rows, in plain PyTorch
+    (see :func:`filter_plane`)."""
     tb = state.tables(plane.device)
     pri_u, dir_u = _unit_params(pm, dmap, vmap, luma, layout_422)
 
@@ -141,9 +144,14 @@ def filter_plane_plain(plane, pm, sm, dmap, vmap, ph, pw, w, h, damping,
         return m.repeat_interleave(h, 0).repeat_interleave(w, 1)[:ph, :pw]
 
     pri, sec, dirs = rep(pri_u), rep(sm), rep(dir_u).long()
+    # canvas rows -2 .. ph + 1 of the band: the halo rows are pixels,
+    # every other row outside (ph, pw) the sentinel
     canvas = torch.full((ph + 4, pw + 4), SENT, dtype=torch.int32,
                         device=plane.device)
-    canvas[2:2 + ph, 2:2 + pw] = plane[:ph, :pw]
+    canvas[2 - top:2 + ph + bottom, 2:2 + pw] = \
+        plane[:top + ph + bottom, :pw]
+    rows = plane.shape[0] - top - bottom
+    plane = plane[top:top + rows]
     px = plane[:ph, :pw]
     yy = torch.arange(2, ph + 2, device=plane.device)[:, None]
     xx = torch.arange(2, pw + 2, device=plane.device)[None, :]
@@ -194,7 +202,7 @@ def filter_plane_plain(plane, pm, sm, dmap, vmap, ph, pw, w, h, damping,
 
 
 def filter_plane(plane, pm, sm, dmap, vmap, ph, pw, w, h, damping,
-                 bitdepth, luma, layout_422):
+                 bitdepth, luma, layout_422, top=0, bottom=0):
     """CDEF of one resident plane: returns a new (H, W) int32 plane.
 
     pm / sm: (ceil(ph/h), ceil(pw/w)) int32 unit primary / secondary
@@ -204,8 +212,20 @@ def filter_plane(plane, pm, sm, dmap, vmap, ph, pw, w, h, damping,
     plane's pixels lie in [0, 2^bitdepth), as the codec's do (the kernel
     takes the min of a pixel and its taps unsigned, to skip the padding
     sentinel).  CPU tensors run the plain version, CUDA tensors launch
-    ``csrc/cdef_filter.cu``."""
-    H, W = plane.shape
+    ``csrc/cdef_filter.cu``.
+
+    Band form (recon/mesh_cdef.py): ``plane`` is a row band's canvas of
+    ``top`` halo rows, the band's rows and ``bottom`` halo rows (0 or 2
+    each; ``bottom`` only where the band's rows are all filtered,
+    ``ph`` = its rows); the result is the band's rows alone, and ``ph``,
+    the unit grids and the maps are in the band's coordinates (the maps
+    from the band's first unit row).  A tap in a halo row reads its
+    pixel, every other tap outside (ph, pw) the sentinel.  The whole
+    plane is the band with no halo; a launch with halo rows counts under
+    ``devrt.LAUNCHES["cdef_filter_band"]``, one without under
+    ``cdef_filter``."""
+    Hc, W = plane.shape
+    H = Hc - top - bottom
     nb, nc = -(-int(ph) // int(h)), -(-int(pw) // int(w))
     build.check(plane, "plane")
     build.check(pm, "pri map", (nb, nc))
@@ -213,34 +233,43 @@ def filter_plane(plane, pm, sm, dmap, vmap, ph, pw, w, h, damping,
     build.check(dmap, "dir map")
     build.check(vmap, "var map", dmap.shape)
     _check_bitdepth(bitdepth)
+    if top not in (0, 2) or bottom not in (0, 2):
+        raise ValueError(f"halo rows {top} above, {bottom} below: 0 or 2")
     if not (0 < ph <= H and 0 < pw <= W):
         raise ValueError(f"filtered region {ph}x{pw} outside {H}x{W}")
+    if bottom and ph != H:
+        raise ValueError(f"halo rows below a band filtered to row {ph} "
+                         f"of {H}")
     if w not in (4, 8) or h not in (4, 8):
         raise ValueError(f"unit {w}x{h}: sides must be 4 or 8")
-    args = (ph, pw, w, h, damping, bitdepth, luma, layout_422)
+    args = (ph, pw, w, h, damping, bitdepth, luma, layout_422, top, bottom)
     if not build.on_cuda(plane, pm, sm, dmap, vmap):
         return filter_plane_plain(plane, pm, sm, dmap, vmap, *args)
-    out = torch.empty_like(plane)
+    out = torch.empty((H, W), dtype=plane.dtype, device=plane.device)
     R8, W8 = dmap.shape
+    # a launch with halo rows counts as the band form's
+    tag = "cdef_filter_band" if top or bottom else "cdef_filter"
     with torch.cuda.device(plane.device):
-        devrt.launch("cdef_filter", build.lib().dtpu_cdef_filter,
+        devrt.launch(tag, build.lib().dtpu_cdef_filter,
                      plane.data_ptr(), out.data_ptr(), H, W, int(ph),
-                     int(pw), pm.data_ptr(), sm.data_ptr(), nc,
-                     dmap.data_ptr(), vmap.data_ptr(), R8, W8, int(w),
-                     int(h), int(damping), int(bitdepth), int(luma),
-                     int(layout_422), build.stream(plane))
+                     int(pw), int(top), int(bottom), pm.data_ptr(),
+                     sm.data_ptr(), nc, dmap.data_ptr(), vmap.data_ptr(), R8,
+                     W8, int(w), int(h), int(damping), int(bitdepth),
+                     int(luma), int(layout_422), build.stream(plane))
     return out
 
 
 def cdef_filter_plane_resident(plane, dmap, vmap, ph, pw, uys, uxs, w, h,
                                pri, sec, damping, bitdepth, luma,
-                               layout_422):
+                               layout_422, top=0, bottom=0):
     """Counterpart of pallas_cdef.cdef_filter_plane_resident: unit lists
     (host numpy) -> strength grids (host numpy, uploaded) -> one filter
-    launch with the direction/variance maps already on the device."""
+    launch with the direction/variance maps already on the device.
+    ``top`` / ``bottom``: the band form of :func:`filter_plane` (units
+    in the band's coordinates)."""
     pm, sm = host_maps(ph, pw, w, h, uys, uxs, pri, sec)
     pm = devrt.upload(pm, plane.device)
     sm = devrt.upload(sm, plane.device)
     return devrt.call("cdef_filter", filter_plane, plane, pm, sm, dmap,
                       vmap, ph, pw, w, h, damping, bitdepth, luma,
-                      layout_422)
+                      layout_422, top, bottom)

@@ -5,7 +5,8 @@ Pass 1 (decode.frame with two_pass=True) runs the serial entropy decode
 and captures per-block mode info and dequantized coefficients in the
 native arenas; at its end every captured inverse transform of the frame
 goes to the frame's device (``f.device``) in one kernel launch
-(:func:`_launch_residuals_native`, ops/itx.py, csrc/itx.cu), and the
+(:func:`_launch_residuals_native`, ops/itx.py, csrc/itx.cu; with a mesh,
+one launch a share of the arena, :func:`itx_shares`), and the
 residuals start coming down.  Pass 2 (:func:`run_pass2`) collects them
 and executes the pixel work:
 
@@ -29,6 +30,8 @@ from __future__ import annotations
 import ctypes
 
 import numpy as np
+
+import torch
 
 from . import devrt, state
 from .decode.tile import TaskContext
@@ -113,16 +116,22 @@ def _launch_residuals_native(f):
     if valid.size == 0:
         return st
     n_cf = int(glue.c.cf_used)
-    order, jobs, groups, n_out = ditx.job_table(
-        meta[valid, 5], meta[valid, 2] >> 8, meta[valid, 1], meta[valid, 0],
-        n_cf)
-    # jobs and groups go up in one copy
-    both = devrt.upload(np.concatenate([jobs.ravel(), groups.ravel()]),
-                        f.device)
-    out = devrt.call("itx", ditx.itx_frame,
-                     devrt.upload(glue.cf_arena[:n_cf], f.device),
-                     both[:jobs.size].view(jobs.shape),
-                     both[jobs.size:].view(groups.shape), n_out, f.bitdepth)
+    blocks = (meta[valid, 5], meta[valid, 2] >> 8, meta[valid, 1],
+              meta[valid, 0], n_cf)
+    mesh = getattr(f, "mesh", None)
+    if mesh is not None:
+        order, jobs, out = _residuals_mesh(f, mesh, glue.cf_arena,
+                                           itx_shares(*blocks, mesh.n))
+    else:
+        order, jobs, groups, n_out = ditx.job_table(*blocks)
+        # jobs and groups go up in one copy
+        both = devrt.upload(np.concatenate([jobs.ravel(), groups.ravel()]),
+                            f.device)
+        out = devrt.call("itx", ditx.itx_frame,
+                         devrt.upload(glue.cf_arena[:n_cf], f.device),
+                         both[:jobs.size].view(jobs.shape),
+                         both[jobs.size:].view(groups.shape), n_out,
+                         f.bitdepth)
     st.host, st.event = devrt.fetch_async(out)
     st.dev = out
     st.jobs = jobs
@@ -130,6 +139,69 @@ def _launch_residuals_native(f):
     st.pos[valid[order]] = np.arange(len(order))
     devrt.COUNTS["itx_blocks"] += len(order)
     return st
+
+
+def itx_shares(cf_off, tx, txtp, eob, n_cf: int, n: int) -> list:
+    """The frame's transform blocks (as ops/itx.job_table takes them) cut
+    into ``n`` shares of contiguous arena ranges, balanced by coefficient
+    words and cut between blocks: per share (lo, hi, rows, (order, jobs,
+    groups, n_out)), the share's arena slice [lo, hi), its blocks'
+    indices ``rows`` into the inputs, and the job table of those blocks
+    over the slice (a share may hold none)."""
+    cf_off = np.asarray(cf_off, np.int64)
+    tx = np.asarray(tx, np.int64)
+    by = np.argsort(cf_off, kind="stable")
+    cum = np.cumsum(ditx._luts()[2][np.clip(tx[by], 0, ditx.N_TX - 1)])
+    cuts = np.searchsorted(cum, cum[-1] * np.arange(1, n) / n, "right") \
+        if len(by) else np.zeros(n - 1, np.int64)
+    bounds = np.concatenate([[0], cuts, [len(by)]])
+    los = [0] + [int(cf_off[by[k]]) if k < len(by) else n_cf
+                 for k in bounds[1:-1]] + [n_cf]
+    shares = []
+    for k in range(n):
+        rows = by[bounds[k]:bounds[k + 1]]
+        lo, hi = los[k], los[k + 1]
+        shares.append((lo, hi, rows, ditx.job_table(
+            cf_off[rows] - lo, tx[rows], np.asarray(txtp)[rows],
+            np.asarray(eob)[rows], hi - lo)))
+    return shares
+
+
+def _residuals_mesh(f, mesh, arena, shares):
+    """The frame's residuals with a mesh: one K4 launch a share of the
+    blocks (:func:`itx_shares`), each on its band's device from one
+    upload of its job rows, group rows and arena slice, the shares'
+    residuals concatenated in share order on the mesh's first device
+    (Mesh.fetch; all-gathered across ranks in the process-group form).
+    Returns (order, jobs, residuals): the frame's job table in that
+    order, its rows' offsets into the concatenation."""
+    parts = []
+    for b in mesh.local:
+        lo, hi, _, (_, jobs, groups, n_out) = shares[b]
+        dev = mesh.device_of(b)
+        if not len(groups):
+            parts.append(torch.zeros(0, dtype=ditx.out_dtype(f.bitdepth),
+                                     device=dev))
+            continue
+        devrt.COUNTS["mesh_itx_shares"] += 1
+        t = devrt.upload(np.concatenate([jobs.ravel(), groups.ravel(),
+                                         arena[lo:hi]]), dev)
+        a, c = jobs.size, jobs.size + groups.size
+        parts.append(devrt.call(
+            "itx", ditx.itx_frame, t[c:], t[:a].view(jobs.shape),
+            t[a:c].view(groups.shape), n_out, f.bitdepth))
+    sizes = [s[3][3] for s in shares]
+    out = mesh.fetch(parts, sizes=sizes)
+    # the frame's job table: each share's rows, offsets into the whole
+    jobs = np.concatenate([s[3][1] for s in shares])
+    start = np.repeat(np.cumsum(sizes) - sizes,
+                      [len(s[3][1]) for s in shares])
+    jobs[:, ditx.J_OUT] += start.astype(np.int32)
+    jobs[:, ditx.J_CF] += np.repeat([s[0] for s in shares],
+                                    [len(s[3][1]) for s in shares]) \
+        .astype(np.int32)
+    order = np.concatenate([s[2][s[3][0]] for s in shares])
+    return order, jobs, out
 
 
 class _McDevice:

@@ -34,6 +34,11 @@ frame refreshes: the MC of later frames reads them there
 (pipeline._launch_mc_device; reference recon/device_chain.py:319-323).
 Where no stage runs, the host planes are the final ones and go up as
 they are.
+With a mesh (``f.mesh``, mesh.Mesh: Settings.mesh), deblock and CDEF run
+as row bands of the resident planes (recon/mesh_lf.py,
+recon/mesh_cdef.py) and the restoration units are dealt in shares, one
+a band (:func:`_lr_mesh`); super-res stays on the mesh's first device,
+which holds the planes between stages.
 Nothing here catches a device failure: an error in a kernel raises out
 of the decode.
 """
@@ -53,6 +58,8 @@ from ..ops import resize as oresize
 from .cdef import cdef_collect
 from .lf import _collect_edges, _fix_tile_boundaries
 from .lr_apply import lr_frame
+from .mesh_cdef import dir_maps_mesh, filter_plane_mesh
+from .mesh_lf import deblock_plane_mesh
 
 
 def _deblock(f, dev):
@@ -77,7 +84,13 @@ def _deblock(f, dev):
         return ys, xs, e_lut[L].astype(np.int64), \
             i_lut[L].astype(np.int64), L >> 4, cls
 
+    mesh = getattr(f, "mesh", None)
     for pl in [0] + ([1, 2] if do_uv else []):
+        if mesh is not None:
+            dev[pl] = deblock_plane_mesh(
+                mesh, dev[pl], edges(pl, 0), edges(pl, 1),
+                (f.bh * 4) >> (f.ss_ver if pl else 0), f.bitdepth, pl == 0)
+            continue
         dev[pl] = olf.deblock_plane(dev[pl], edges(pl, 0), edges(pl, 1),
                                     f.bitdepth, pl == 0)
 
@@ -92,7 +105,12 @@ def _cdef(f, dev):
     ss_ver = int(f.layout == PixelLayout.I420)
     ss_hor = int(f.layout != PixelLayout.I444)
     has_chroma = f.layout != PixelLayout.I400
-    if ((y_pri | uv_pri) > 0).any():
+    mesh = getattr(f, "mesh", None)
+    if mesh is not None:
+        # the direction search per luma band (recon/mesh_cdef.py)
+        maps = dir_maps_mesh(mesh, dev[0], f.bh * 4, f.bitdepth,
+                             bool(((y_pri | uv_pri) > 0).any()))
+    elif ((y_pri | uv_pri) > 0).any():
         dmap, vmap = devrt.call("cdef_dir", ocdef.find_dir_maps, dev[0],
                                 f.bitdepth)
     else:
@@ -117,6 +135,12 @@ def _cdef(f, dev):
             continue
         w, h = 8 >> sh, 8 >> sv
         pw, ph = (f.bw * 4) >> sh, (f.bh * 4) >> sv
+        if mesh is not None:
+            dev[pl] = filter_plane_mesh(
+                mesh, dev[pl], maps, ph, pw, uys, uxs, w, h, pri, sec,
+                damping - (1 if pl else 0), f.bitdepth, pl == 0,
+                f.layout == PixelLayout.I422)
+            continue
         # CDEF reads unfiltered neighbours: the filter writes a new plane
         dev[pl] = ocdef.cdef_filter_plane_resident(
             dev[pl], dmap, vmap, ph, pw, uys, uxs, w, h, pri, sec,
@@ -144,12 +168,16 @@ def _lr(f, dev, pre):
     geom = {}
     lr_frame(f, geom_sink=geom)
     dev = list(dev)
+    mesh = getattr(f, "mesh", None)
     for pl in range(len(dev)):
         wj, sj = olr.job_tables(geom, pl)
         if not (len(wj) or len(sj)):
             continue
         devrt.COUNTS["lr_wiener_units"] += len(wj)
         devrt.COUNTS["lr_sgr_units"] += len(sj)
+        if mesh is not None:
+            dev[pl] = _lr_mesh(f, mesh, dev[pl], pre[pl], wj, sj)
+            continue
         wc, sc = olr.chunk_table(wj), olr.chunk_table(sj, sgr=True)
         olr.check_chunks(wj, wc)
         olr.check_chunks(sj, sc, sgr=True)
@@ -170,6 +198,77 @@ def _lr(f, dev, pre):
                              chunks=chunks[len(wc):])
         dev[pl] = out
     return dev
+
+
+def _rect_index(jobs: torch.Tensor, n_px: int, W: int) -> torch.Tensor:
+    """Flat indices into an (H, W) plane of the ``n_px`` pixels of the
+    restoration units ``jobs`` ((n, JOB_COLS) int32 rows on a device),
+    unit by unit, row-major within a unit."""
+    J = jobs.long()
+    x, y, uw = J[:, olr.J_X], J[:, olr.J_Y], J[:, olr.J_UW]
+    size = uw * J[:, olr.J_SH]
+    job = torch.repeat_interleave(torch.arange(len(J), device=J.device),
+                                  size, output_size=n_px)
+    k = torch.arange(n_px, device=J.device) - (torch.cumsum(size, 0)
+                                               - size)[job]
+    return (y[job] + k // uw[job]) * W + x[job] + k % uw[job]
+
+
+def _lr_mesh(f, mesh, post, pre, wj, sj):
+    """One plane's restoration with a mesh: the Wiener and the self-guided
+    job rows dealt in contiguous shares, one a band (each table's chunk
+    table made from its share's rows, so its rules hold: self-guided
+    bands of 16 rows on even unit rows), each share restored on its
+    band's device from its copies of ``post`` and ``pre`` into a plane
+    of its own; the mesh's first device takes each unit's rectangle from
+    the share that restored it (Mesh.fetch; all-gathered across ranks in
+    the process-group form), at indices made from the job rows
+    (reference unit-batch sharding, dav1d_tpu/ops/lr.py:49-80)."""
+    W = post.shape[1]
+    dealt = list(zip(np.array_split(wj, mesh.n), np.array_split(sj, mesh.n)))
+    shares, rows = [], []
+    for a, b in dealt:
+        wc, sc = olr.chunk_table(a), olr.chunk_table(b, sgr=True)
+        olr.check_chunks(a, wc)
+        olr.check_chunks(b, sc, sgr=True)
+        shares.append((len(a), len(b), len(wc), len(sc),
+                       int((a[:, olr.J_UW] * a[:, olr.J_SH]).sum()
+                           + (b[:, olr.J_UW] * b[:, olr.J_SH]).sum())))
+        rows.append(np.concatenate([a.ravel(), b.ravel(), wc.ravel(),
+                                    sc.ravel()]))
+    # rows of whole 16-byte groups: every share's chunk table aligned
+    batch = np.zeros((mesh.n, -(-max(len(r) for r in rows) // 4) * 4),
+                     np.int32)
+    for k, r in enumerate(rows):
+        batch[k, :len(r)] = r
+    parts = []
+    for k, row in zip(mesh.local, mesh.put(batch)):
+        nw, ns, nwc, nsc, px = shares[k]
+        if not px:
+            parts.append(row.new_zeros(0))
+            continue
+        dv = mesh.device_of(k)
+        post_k, pre_k = post.to(dv), pre.to(dv)
+        nj = (nw + ns) * olr.JOB_COLS
+        jobs = row[:nj].view(-1, olr.JOB_COLS)
+        chunks = row[nj:nj + (nwc + nsc) * olr.CHUNK_COLS].view(
+            -1, olr.CHUNK_COLS)
+        out = None
+        if nw:
+            devrt.COUNTS["mesh_lr_wiener_shares"] += 1
+            out = devrt.call("lr_wiener", olr.wiener, post_k, pre_k,
+                             jobs[:nw], f.bitdepth, chunks=chunks[:nwc])
+        if ns:
+            devrt.COUNTS["mesh_lr_sgr_shares"] += 1
+            out = devrt.call("lr_sgr", olr.sgr, post_k, pre_k, jobs[nw:],
+                             f.bitdepth, out=out, chunks=chunks[nwc:])
+        parts.append(out.view(-1)[_rect_index(jobs, px, W)])
+    vals = mesh.fetch(parts, sizes=[s[4] for s in shares])
+    every = devrt.upload(np.concatenate([t for a, b in dealt
+                                         for t in (a, b)]), post.device)
+    res = post.clone()
+    res.view(-1)[_rect_index(every, sum(s[4] for s in shares), W)] = vals
+    return res
 
 
 def filter_chain_device(f, device) -> None:

@@ -22,7 +22,14 @@
   (4:2:0) and 4x8 (4:2:2), filtered regions and planes that are not
   multiples of the 16 x 64 tile (one of them not a multiple of 4 wide:
   the scalar path), empty tiles, units beyond the direction maps, bit
-  depths 8/10/12, noise and spikes (at mid range and up to 2^bd - 1).
+  depths 8/10/12, noise and spikes (at mid range and up to 2^bd - 1);
+* the filter's band form (the canvas of a row band with 0 or 2 halo
+  rows above and below, recon/mesh_cdef.py): the plain version on every
+  band of a plane cut into 64- or 32-row bands equals the whole-plane
+  plain version on the band's rows, luma, 4:2:0, 4:2:2 and 4:4:4,
+  bit depths 8/10/12, and the kernel's header built as host C++ runs
+  the same bands equal to the plain band form; the wrapper refuses halo
+  rows other than 0 or 2, and rows below a band not filtered to its end.
 
 The plain versions are what the wrappers run on CPU tensors; the CUDA
 kernels are compared with them on the card by chip_smoke.py.
@@ -222,13 +229,16 @@ _HARNESS = r"""
 #include "cdef_core.cuh"
 
 extern "C" void cdef_host(const int* src, int* dst, int H, int W, int ph,
-                          int pw, const int* pm, const int* sm, int ncols,
-                          const int* dmap, const int* vmap, int R8, int W8,
-                          int lw, int lh, int damping, int bitdepth,
-                          int luma, int l422, int vec) {
-    const cdef::Plane p{src, dst, H, W, ph, pw, pm, sm,
-                        (ph + (1 << lh) - 1) >> lh, ncols, dmap, vmap, R8,
-                        W8, lw, lh, damping, bitdepth - 8, luma, l422, vec};
+                          int pw, int top, int bot, const int* pm,
+                          const int* sm, int ncols, const int* dmap,
+                          const int* vmap, int R8, int W8, int lw, int lh,
+                          int damping, int bitdepth, int luma, int l422,
+                          int vec) {
+    // src: the canvas of top + H + bot rows, as dtpu_cdef_filter takes it
+    const cdef::Plane p{src + (long long)top * W, dst, H, W, ph, pw, top,
+                        bot, pm, sm, (ph + (1 << lh) - 1) >> lh, ncols,
+                        dmap, vmap, R8, W8, lw, lh, damping, bitdepth - 8,
+                        luma, l422, vec};
     static cdef::Tile s;
     const int nt = 256;  // the kernel's CTA; each loop is one phase
     for (int y0 = 0; y0 < H; y0 += cdef::TILE_H)
@@ -268,8 +278,8 @@ def kernel_on_host(tmp_path_factory):
     assert r.returncode == 0, r.stderr[-3000:]
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.cdef_host.argtypes = [P, P, I, I, I, I, P, P, I, P, P, I, I, I, I,
-                              I, I, I, I, I]
+    lib.cdef_host.argtypes = [P, P, I, I, I, I, I, I, P, P, I, P, P, I, I,
+                              I, I, I, I, I, I, I]
     lib.cdef_host.restype = None
     return lib
 
@@ -325,13 +335,150 @@ def test_kernel_source_on_host(kernel_on_host, case, bitdepth, content):
         l422).numpy()
     got = np.full_like(plane, -1)
     kernel_on_host.cdef_host(
-        plane.ctypes.data, got.ctypes.data, H, W, ph, pw,
+        plane.ctypes.data, got.ctypes.data, H, W, ph, pw, 0, 0,
         pm.numpy().ctypes.data, sm.numpy().ctypes.data, nc,
         dmap.ctypes.data, vmap.ctypes.data, *dmap.shape, w.bit_length() - 1,
         h.bit_length() - 1, damping, bitdepth, luma, l422, W % 4 == 0)
     assert np.array_equal(got, want), \
         f"mismatch at {np.argwhere(got != want)[:4]}"
     assert not np.array_equal(want[:ph, :pw], plane[:ph, :pw])
+
+
+# (luma, layout_422, w, h, ph, pw, H, W, band rows): row bands of 64 rows
+# (the mesh's alignment) and of 32 (4x4 and 4x8 units, tiles that straddle
+# nothing), a last band cut short by ph, and one wholly past it
+BAND_CASES = [
+    (True, False, 8, 8, 150, 72, 160, 72, 64),
+    (False, False, 4, 4, 75, 40, 80, 40, 32),    # 4:2:0 chroma
+    (False, True, 4, 8, 128, 36, 136, 40, 32),   # 4:2:2: ph on a band edge
+    (False, False, 8, 8, 100, 66, 104, 68, 32),  # 4:4:4, W % 4 != 0
+]
+
+
+def _band_inputs(case, bitdepth, seed):
+    """A plane, its unit grids, maps and damping (noise content, a band
+    of unit rows with no unit), as test_kernel_source_on_host makes
+    them."""
+    luma, l422, w, h, ph, pw, H, W, _ = case
+    rng = np.random.default_rng(seed)
+    nb, nc = -(-ph // h), -(-pw // w)
+    plane = rng.integers(0, 1 << bitdepth, (H, W)).astype(np.int32)
+    pri, sec = _units(rng, nb, nc, bitdepth)
+    pri[1:2] = sec[1:2] = 0
+    dmap = rng.integers(0, 8, (nb - 1, nc)).astype(np.int32)
+    vmap = rng.integers(0, 1 << 12, dmap.shape).astype(np.int32)
+    damping = 3 + int(rng.integers(0, 4)) + bitdepth - 8 - (not luma)
+    return (plane, pri.astype(np.int32), sec.astype(np.int32), dmap, vmap,
+            damping)
+
+
+def _bands(case):
+    """(band, first row, top, bottom, band's ph) of every band of the
+    case's rows, and the bands past ph (ph_b <= 0)."""
+    ph, H, bh = case[4], case[6], case[8]
+    for b in range(-(-H // bh) + 1):
+        y0 = b * bh
+        ph_b = min(bh, ph - y0)
+        yield (b, y0, 2 if b and ph_b > 0 else 0,
+               2 if y0 + bh < ph else 0, ph_b)
+
+
+def _band_canvas(plane, y0, bh, top, bottom):
+    """Rows y0 - top .. y0 + bh + bottom of ``plane``, zero past it."""
+    H, W = plane.shape
+    c = np.zeros((top + bh + bottom, W), np.int32)
+    a, b = y0 - top, min(y0 + bh + bottom, H)
+    c[:max(b - a, 0)] = plane[a:b]
+    return c
+
+
+def _band_maps(m, y0, h, ph_b):
+    """Rows of a unit grid or map from the band's first unit row."""
+    return np.ascontiguousarray(m[y0 // h:y0 // h + -(-ph_b // h)])
+
+
+@pytest.mark.parametrize("bitdepth", [8, 10, 12])
+@pytest.mark.parametrize("case", BAND_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_band_form_plain_matches_whole_plane(case, bitdepth):
+    """The plain filter's band form (top / bottom halo rows of 0 or 2)
+    equals the whole-plane plain filter on the band's rows, for every
+    band: the first (no halo above), inner ones (both halos), the one
+    that holds ph (no halo below, rows past ph pass through) and one
+    past ph (no filtered row: the wrapper refuses it, the rows are the
+    plane's)."""
+    luma, l422, w, h, ph, pw, H, W, bh = case
+    plane, pri, sec, dmap, vmap, damping = _band_inputs(case, bitdepth,
+                                                        bitdepth + ph)
+    t = torch.from_numpy
+    args = (damping, bitdepth, luma, l422)
+    want = tcdef.filter_plane_plain(t(plane), t(pri), t(sec), t(dmap),
+                                    t(vmap), ph, pw, w, h, *args).numpy()
+    seen = set()
+    for b, y0, top, bottom, ph_b in _bands(case):
+        canvas = t(_band_canvas(plane, y0, bh, top, bottom))
+        if ph_b <= 0:
+            with pytest.raises(ValueError):
+                tcdef.filter_plane(canvas, t(pri[:0]), t(sec[:0]), t(dmap),
+                                   t(vmap), ph_b, pw, w, h, *args, top,
+                                   bottom)
+            continue
+        seen.add((top, bottom))
+        got = tcdef.filter_plane(
+            canvas, t(_band_maps(pri, y0, h, ph_b)),
+            t(_band_maps(sec, y0, h, ph_b)),
+            t(np.ascontiguousarray(dmap[y0 // h:])),
+            t(np.ascontiguousarray(vmap[y0 // h:])), ph_b, pw, w, h, *args,
+            top, bottom).numpy()
+        n = min(bh, H - y0)
+        assert got.shape == (bh, W)
+        assert np.array_equal(got[:n], want[y0:y0 + n]), \
+            f"band {b}: mismatch at {np.argwhere(got[:n] != want[y0:y0 + n])[:4]}"
+    assert {(0, 2), (2, 2), (2, 0)} <= seen
+
+
+@pytest.mark.parametrize("bitdepth", [8, 10, 12])
+@pytest.mark.parametrize("case", BAND_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_band_form_kernel_source_on_host(kernel_on_host, case, bitdepth):
+    """cdef_core.cuh's phases with a band origin (the canvas's top halo
+    rows above the band's row 0) equal the plain band form exactly."""
+    luma, l422, w, h, ph, pw, H, W, bh = case
+    plane, pri, sec, dmap, vmap, damping = _band_inputs(case, bitdepth,
+                                                        bitdepth * 3 + pw)
+    t = torch.from_numpy
+    for b, y0, top, bottom, ph_b in _bands(case):
+        if ph_b <= 0:
+            continue
+        canvas = _band_canvas(plane, y0, bh, top, bottom)
+        pm, sm = _band_maps(pri, y0, h, ph_b), _band_maps(sec, y0, h, ph_b)
+        dm = np.ascontiguousarray(dmap[y0 // h:])
+        vm = np.ascontiguousarray(vmap[y0 // h:])
+        want = tcdef.filter_plane_plain(
+            t(canvas), t(pm), t(sm), t(dm), t(vm), ph_b, pw, w, h, damping,
+            bitdepth, luma, l422, top, bottom).numpy()
+        got = np.full((bh, W), -1, np.int32)
+        kernel_on_host.cdef_host(
+            canvas.ctypes.data, got.ctypes.data, bh, W, ph_b, pw, top,
+            bottom, pm.ctypes.data, sm.ctypes.data, pm.shape[1],
+            dm.ctypes.data, vm.ctypes.data, *dm.shape, w.bit_length() - 1,
+            h.bit_length() - 1, damping, bitdepth, luma, l422, W % 4 == 0)
+        assert np.array_equal(got, want), \
+            f"band {b}: mismatch at {np.argwhere(got != want)[:4]}"
+
+
+def test_band_form_refusals():
+    """The band wrapper refuses halo rows other than 0 or 2, and rows
+    below a band that is not filtered to its end."""
+    p = torch.zeros((20, 16), dtype=torch.int32)
+    m = torch.zeros((2, 2), dtype=torch.int32)
+    for top, bottom in ((1, 0), (4, 0), (0, 3), (-2, 0)):
+        with pytest.raises(ValueError, match="halo rows"):
+            tcdef.filter_plane(p, m, m, m, m, 16, 16, 8, 8, 5, 8, True,
+                               False, top, bottom)
+    with pytest.raises(ValueError, match="halo rows below"):
+        tcdef.filter_plane(p, m[:1].contiguous(), m[:1].contiguous(), m, m,
+                           8, 16, 8, 8, 5, 8, True, False, 2, 2)
 
 
 _DIR_HARNESS = r"""

@@ -22,8 +22,9 @@ versions of the kernels) against the JAX package, bit-exact.
   selection takes: kitchen, grain and hbd10.  superres_lr has none: with
   super-res on every frame, each reference's upscaled width differs from
   the coded width, so every reference counts as scaled;
-* every committed smoke stream (also two film-grain streams and a
-  palette-coded one) decodes to its committed md5, with its
+* every committed smoke stream (also two film-grain streams, a
+  palette-coded one and 256x192 streams of 4:2:2 8-bit, 4:4:4 10-bit,
+  4:2:0 12-bit and monochrome 8-bit) decodes to its committed md5, with its
   transform blocks through the itx stage, its inter blocks predicted by
   the MC stage and its loop-restoration units filtered, counted (the
   10-bit stream: 164 transform blocks, 11 of its 12 inter blocks; the
@@ -61,7 +62,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from dav1d_tpu.containers import read_ivf
+from dav1d_tpu_torch.containers import read_ivf
 from dav1d_tpu.dispatch import use_device
 from test_device_e2e import CASES
 
@@ -277,6 +278,18 @@ COMMITTED = {
                                 "mc_blocks": 80},
     # two key frames, palette coded
     "screen_1080p_8bit.ivf": {"itx_blocks": 196, "inter_blocks": 0},
+    # the other layouts at 256x192, 1 key + 3 inter frames, restoration on
+    "i422_8bit_256x192.ivf": {"itx_blocks": 1030, "inter_blocks": 143,
+                              "mc_blocks": 130, "lr_wiener_units": 10,
+                              "lr_sgr_units": 0},
+    "i444_10bit_256x192.ivf": {"itx_blocks": 598, "inter_blocks": 92,
+                               "mc_blocks": 84, "lr_wiener_units": 2,
+                               "lr_sgr_units": 0},
+    "i420_12bit_256x192.ivf": {"itx_blocks": 166, "inter_blocks": 36,
+                               "mc_blocks": 35},
+    "mono_8bit_256x192.ivf": {"itx_blocks": 498, "inter_blocks": 160,
+                              "mc_blocks": 135, "lr_wiener_units": 6,
+                              "lr_sgr_units": 0},
 }
 
 
@@ -355,7 +368,7 @@ if mode == "accelerator":
     _use_device = dispatch.use_device
     dispatch.use_device = lambda kind: asked.append(kind) or _use_device(kind)
 
-from dav1d_tpu.containers import read_ivf
+from dav1d_tpu_torch.containers import read_ivf
 from dav1d_tpu_torch.decoder import Decoder, Settings
 
 data = Path(sys.argv[2]).read_bytes()

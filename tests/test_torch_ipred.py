@@ -838,7 +838,7 @@ def test_levels_read_only_earlier_levels(tmp_path, name, monkeypatch):
     """No unit reads a cell written at its own level or later, on the
     schedules of the tests/test_device_intra.CASES streams: what lets
     each level's launch write the canvas in place."""
-    from dav1d_tpu.containers import read_ivf
+    from dav1d_tpu_torch.containers import read_ivf
     from dav1d_tpu_torch.decoder import Decoder, Settings
     from dav1d_tpu_torch.recon import device_intra
 
@@ -883,7 +883,7 @@ def test_walk_host_replays_the_decode(kernel_on_host, tmp_path, name,
     against the JAX host tier): the host build of the walk, from each
     walk's input canvas, in ticket order and permuted within each level,
     gives the walk's output exactly."""
-    from dav1d_tpu.containers import read_ivf
+    from dav1d_tpu_torch.containers import read_ivf
     from dav1d_tpu_torch.decoder import Decoder, Settings
 
     seen = []

@@ -21,7 +21,12 @@ streams and their expected md5s are made here and committed:
 - ``screen_1080p_8bit.ivf``: two 1080p key frames of
   tests/test_device_intra.screen_frames with palette coding
   (enable-palette=1, enable-intrabc=0, tune-content=screen), the
-  highest cpu_used that still codes palette blocks.
+  highest cpu_used that still codes palette blocks;
+- the layouts beside 4:2:0 at 8 and 10 bits, at 256x192, 4 frames
+  (1 key + 3 inter), libaom cpu_used=4, q=40, loop restoration on:
+  ``i422_8bit_256x192.ivf`` (4:2:2 8-bit), ``i444_10bit_256x192.ivf``
+  (4:4:4 10-bit), ``i420_12bit_256x192.ivf`` (4:2:0 12-bit) and
+  ``mono_8bit_256x192.ivf`` (monochrome 8-bit).
 
 The md5 of each stream is the JAX package's host tier
 (DAV1D_TPU_DEVICE=0) over every plane of every output picture, in the
@@ -82,6 +87,16 @@ STREAMS = {
                  options={"enable-palette": 1, "enable-intrabc": 0,
                           "tune-content": "screen"})),
 }
+for _name, _fmt, _bd, _mono in (("i422_8bit_256x192.ivf", "422", 8, False),
+                                ("i444_10bit_256x192.ivf", "444", 10, False),
+                                ("i420_12bit_256x192.ivf", "420", 12, False),
+                                ("mono_8bit_256x192.ivf", "420", 8, True)):
+    STREAMS[_name] = dict(
+        n=4, w=256, h=192, bitdepth=_bd, fmt=_fmt, monochrome=_mono,
+        enc=dict(usage="good", cpu_used=4, q=40, kf_max_dist=9999, lag=0,
+                 fmt=_fmt, monochrome=_mono,
+                 options={"enable-order-hint": 1,
+                          "enable-restoration": 1}))
 
 
 def _frames(spec):
@@ -92,7 +107,9 @@ def _frames(spec):
         from test_device_intra import screen_frames
 
         return screen_frames(n, w, h, bitdepth=bd)
-    return gradient_frames(n, w, h, bitdepth=bd)
+    return gradient_frames(n, w, h, bitdepth=bd,
+                           fmt=spec.get("fmt", "420"),
+                           monochrome=spec.get("monochrome", False))
 
 
 def _host_md5(data: bytes):
