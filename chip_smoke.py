@@ -150,6 +150,24 @@ Phases; any failure exits non-zero:
    frame's luma chain, its plain version once (held equal to the walk),
    and its latency floor (its levels times the floor of a level).
 
+6. the port's entry points on the card: the CLI (``python -m
+   dav1d_tpu_torch.cli``, in a subprocess on its default device) on the
+   main stream with ``--muxer md5 --verify`` of the JAX CLI's digest
+   (``cli_md5`` in md5.json: exit 0, the same digest, its status line's
+   frames/s, and its K3/K4/K1/K2/K5 launches counted in that process),
+   and with a wrong digest (exit 1); the player's ``--ppm`` dump of the
+   first two frames against the JAX player's (``ppm_md5``);
+   ``gop.gop_decode`` with 2 spawned workers and ``gop.relay_decode``
+   with 2 segments of the 8-frame, two-GOP 1080p stream against its md5;
+   the fused step of ``entry.entry()`` on the card, one K3 and one K4
+   launch, equal to its plain version on CPU tensors; then
+   ``entry.dryrun_multichip(2)`` and ``(4)``; and the scaling tool's
+   parts A (the main stream at 1, 2 and 4 bands, byte-equal to one
+   device, with the halo and band work per frame) and B (the band
+   kernels' calls of the main and restoration streams replayed at full
+   size and at the 1/n share, CUDA events), printed on a line of their
+   own.
+
 The line before the last is the kernels' JSON report; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -209,6 +227,15 @@ N_THREADS = 4
 # the stream whose walks give each per-level kernel its timed level
 LEVEL_STREAM = {"ipred": MAIN_STREAM, "ipred_cfl": MAIN_STREAM,
                 "ipred_pal": SCREEN_STREAM}
+
+# phase 6, the entry points: the CLI and the player on the main stream,
+# GOP-parallel and relay decodes of an 8-frame stream of two GOPs, the
+# fused step and its mesh dry run, and the scaling tool at these bands
+GOP_STREAM = "gop_1080p_8bit.ivf"
+SCALING_BANDS = (1, 2, 4)
+# the main stream's kernels (K3, K4, K1, K2, K5), counted in the CLI's run
+CLI_KERNELS = ("mc", "itx", "deblock_v", "deblock_h", "cdef_filter",
+               "cdef_dir")
 
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -1259,12 +1286,8 @@ def launch_ms(kfn, args, reps=20):
     """Device ms per launch of the C entry point that ``kfn(*args)``
     calls: one wrapper call captures the launch (``devrt.CAPTURE``),
     then ``reps`` bare calls of the C entry point with those arguments
-    are queued behind a spin kernel (``torch.cuda._sleep``), so the card
-    runs them back to back whatever the host's cost per call; CUDA
-    events around them.  Returns (ms, host seconds of the ``reps`` calls,
-    to check they fit in the spin)."""
-    import torch
-
+    run back to back behind a spin kernel (:func:`replay_ms`).  Returns
+    (ms, host ms of queueing the ``reps`` calls)."""
     from dav1d_tpu_torch import devrt
 
     devrt.CAPTURE = []
@@ -1274,19 +1297,7 @@ def launch_ms(kfn, args, reps=20):
     finally:
         devrt.CAPTURE = None
     _require(len(captured) == 1, f"{len(captured)} launches captured")
-    _, cfn, cargs, _keep = captured[0]
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(10_000_000)  # ~5 ms at the H100's clock
-    t0.record()
-    h0 = time.perf_counter()
-    rcs = [cfn(*cargs) for _ in range(reps)]
-    host_s = time.perf_counter() - h0
-    t1.record()
-    torch.cuda.synchronize()
-    _require(not any(rcs), f"launch failed: {rcs}")
-    return t0.elapsed_time(t1) / reps, host_s
+    return replay_ms(captured, reps)
 
 
 def tile_list_host_ms(mc_calls, n_frames, reps=20):
@@ -1820,24 +1831,16 @@ class FrameLog:
         return False
 
 
-def replay_ms(captured):
-    """Device ms of the captured launches (devrt.CAPTURE entries) run
-    again back to back: queued behind a spin kernel long enough for the
-    host to queue them all (~50 us of spin a launch), CUDA events around
-    them.  Returns (ms, host ms of the queueing)."""
-    import torch
+def replay_ms(captured, reps=1):
+    """Device ms of one pass over the captured launches (devrt.CAPTURE
+    entries) run again back to back (``devrt.replay_ms``), and the host
+    ms of queueing them; a failure is the run's."""
+    from dav1d_tpu_torch import devrt
 
-    torch.cuda.synchronize()
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(max(10_000_000, 100_000 * len(captured)))
-    e0.record()
-    h0 = time.perf_counter()
-    rcs = [cfn(*cargs) for _, cfn, cargs, _ in captured]
-    host_s = time.perf_counter() - h0
-    e1.record()
-    torch.cuda.synchronize()
-    _require(not any(rcs), f"replayed launches failed: {rcs}")
-    return e0.elapsed_time(e1), host_s * 1e3
+    try:
+        return devrt.replay_ms(captured, reps)
+    except RuntimeError as e:
+        raise SmokeError(str(e)) from e
 
 
 def check_grain_frames(name, frames, n):
@@ -2049,6 +2052,189 @@ def check_mesh_frames(name, frames, n, bands, ph, bh):
                      f"{units} units")
         halo.append(u.get("halo_bytes", 0))
     return halo
+
+
+# the CLI in a subprocess, its launch counts printed at its end
+_CLI_RUN = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from dav1d_tpu_torch import cli, devrt
+devrt.LAUNCHES.clear()
+rc = cli.main(sys.argv[2:])
+print("launches " + json.dumps(dict(devrt.LAUNCHES)), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def _cli(*args, timeout=300):
+    """``python -m dav1d_tpu_torch.cli`` in a subprocess on its default
+    device, the card: (exit code, stderr, launches)."""
+    r = subprocess.run([sys.executable, "-c", _CLI_RUN, str(ROOT),
+                        *map(str, args)], capture_output=True, text=True,
+                       cwd=ROOT, timeout=timeout)
+    launches = {}
+    for line in r.stderr.splitlines():
+        if line.startswith("launches "):
+            launches = json.loads(line[len("launches "):])
+    return r.returncode, r.stderr, launches
+
+
+def _stitched(parts):
+    h = hashlib.md5()
+    for _, path in parts:
+        h.update(Path(path).read_bytes())
+    return sum(c for c, _ in parts), h.hexdigest()
+
+
+def entry_points(device, card) -> dict:
+    """Phase 6: the port's entry points on the card (module docstring)."""
+    import re
+    import tempfile
+
+    import torch
+
+    from dav1d_tpu_torch import devrt, entry, gop, scaling
+
+    md5s = json.loads((DATA / "md5.json").read_text())
+    main = md5s[MAIN_STREAM]
+    report = {}
+    work = ROOT / "dav1d_tpu_torch" / "_build"
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        tmp = Path(tmp)
+        # the CLI: md5 muxer with --verify of the JAX CLI's digest, and a
+        # wrong digest
+        t0 = time.perf_counter()
+        rc, err, launches = _cli("-i", DATA / MAIN_STREAM, "--muxer", "md5",
+                                 "-o", tmp / "out.md5", "--verify",
+                                 main["cli_md5"])
+        wall = time.perf_counter() - t0
+        print(f"  cli --muxer md5 --verify: exit {rc}; "
+              f"{err.strip().splitlines()[-3:]}", flush=True)
+        _require(rc == 0 and "verify OK" in err,
+                 f"cli: exit {rc}, stderr {err[-2000:]}")
+        got = (tmp / "out.md5").read_text().split()[0]
+        _require(got == main["cli_md5"], f"cli md5 {got}, want "
+                 f"{main['cli_md5']} (the JAX CLI's)")
+        m = re.search(r"decoded (\d+)/(\d+) frames in ([\d.]+)s "
+                      r"\(([\d.]+) fps\)", err)
+        _require(m is not None, f"cli: no status line in {err[-2000:]}")
+        frames = int(m.group(1))
+        _require(frames == main["frames"], f"cli decoded {frames} frames")
+        for k in CLI_KERNELS:
+            want = frames - 1 if k == "mc" else frames
+            _require(launches.get(k, 0) >= want, f"cli: {k} launched "
+                     f"{launches.get(k, 0)} times, want >= {want}")
+        for k in ("itx", "cdef_dir"):
+            _require(launches.get(k, 0) == frames, f"cli: {k} launched "
+                     f"{launches.get(k, 0)} times for {frames} frames")
+        rc_bad, err_bad, _ = _cli("-i", DATA / MAIN_STREAM, "--muxer",
+                                  "null", "--verify", "0" * 32)
+        _require(rc_bad == 1 and "verify FAILED" in err_bad,
+                 f"cli --verify with a wrong digest: exit {rc_bad}")
+        report["cli"] = {"md5": got, "fps_status_line": float(m.group(4)),
+                         "decode_s": float(m.group(3)),
+                         "process_s": wall,
+                         "launches": {k: launches.get(k, 0)
+                                      for k in CLI_KERNELS},
+                         "verify_wrong_exit": rc_bad}
+        print(f"  cli on {MAIN_STREAM}: md5 {got} (the JAX CLI's), "
+              f"{m.group(4)} fps on the status line ({m.group(3)} s of "
+              f"decode, {wall:.1f} s for the process) on {card}; launches "
+              f"{report['cli']['launches']}; --verify with a wrong digest "
+              f"exits {rc_bad}", flush=True)
+        # the player's PPM dump of the first two frames
+        ppm = tmp / "ppm"
+        r = subprocess.run([sys.executable, "-m", "dav1d_tpu_torch.play",
+                            "-i", str(DATA / MAIN_STREAM), "--ppm", str(ppm),
+                            "--no-pace", "--limit", "2"], capture_output=True,
+                           text=True, cwd=ROOT, timeout=300)
+        _require(r.returncode == 0, f"player: exit {r.returncode}, "
+                 f"{r.stderr[-2000:]}")
+        h = hashlib.md5()
+        files = sorted(ppm.iterdir())
+        for f in files:
+            h.update(f.read_bytes())
+        _require(len(files) == 2 and h.hexdigest() == main["ppm_md5"],
+                 f"player: {len(files)} files md5 {h.hexdigest()}, want 2 "
+                 f"md5 {main['ppm_md5']} (the JAX player's)")
+        report["play_ppm_md5"] = h.hexdigest()
+        print(f"  player --ppm, 2 frames: md5 {h.hexdigest()} (the JAX "
+              f"player's)", flush=True)
+        # GOP-parallel (2 workers) and relay (2 segments) decodes
+        data = (DATA / GOP_STREAM).read_bytes()
+        want = (md5s[GOP_STREAM]["frames"], md5s[GOP_STREAM]["md5"])
+        for kind, run in (("gop_decode", lambda d: gop.gop_decode(
+                data, jobs=2, workdir=d, device=device)),
+                          ("relay_decode", lambda d: gop.relay_decode(
+                              data, segments=2, workdir=d, device=device))):
+            d = tmp / kind
+            d.mkdir()
+            t0 = time.perf_counter()
+            parts = run(str(d))
+            wall = time.perf_counter() - t0
+            got = _stitched(parts)
+            print(f"  {kind} of {GOP_STREAM}: {len(parts)} segments "
+                  f"{[c for c, _ in parts]} frames, md5 {got[1]} (want "
+                  f"{want[1]}), {wall:.1f} s with process starts",
+                  flush=True)
+            _require(len(parts) == 2 and got == want,
+                     f"{kind}: {len(parts)} segments, {got}, want {want}")
+            report[kind] = {"segments": [c for c, _ in parts],
+                            "md5": got[1], "wall_s": wall}
+    # the fused step, held against its plain version on CPU tensors
+    fn, ex = entry.entry(device)
+    devrt.LAUNCHES.clear()
+    out = fn(*ex)
+    torch.cuda.synchronize()
+    step_launches = {k: v for k, v in devrt.LAUNCHES.items() if v}
+    ref = fn(*(t.cpu() for t in ex))
+    e = _max_abs_err(out.cpu(), ref)
+    _require(e == 0 and out.shape == ref.shape and
+             step_launches == {"mc": 1, "itx": 1},
+             f"entry step: max_abs_err {e}, launches {step_launches}")
+    step_ms = cuda_ms(lambda: fn(*ex))
+    report["entry_step"] = {"shape": list(out.shape), "max_abs_err": e,
+                            "launches": step_launches, "ms": step_ms}
+    print(f"  entry(): {tuple(out.shape)} equal to its plain version "
+          f"(max_abs_err {e}), launches {step_launches}, {step_ms:.4f} ms "
+          f"a step", flush=True)
+    report["dryrun_multichip"] = []
+    for n in (2, 4):
+        try:
+            r = entry.dryrun_multichip(n, device)
+        except AssertionError as exc:
+            raise SmokeError(f"dryrun_multichip({n}): {exc}") from exc
+        report["dryrun_multichip"].append(r)
+        print(f"  dryrun_multichip({n}): {r}", flush=True)
+    # the scaling tool, parts A and B
+    a = scaling.part_a(MAIN_STREAM, SCALING_BANDS, device)
+    _require(a["byte_equal_all"], f"scaling part A: a mesh decode differs "
+             f"from the one-device decode: {a}")
+    b = scaling.part_b((MAIN_STREAM, LR_STREAM), SCALING_BANDS, device)
+    _require({r["bands"] for r in b["rows"]} == set(SCALING_BANDS),
+             f"scaling part B: rows for {[r['bands'] for r in b['rows']]}")
+    print(json.dumps({"scaling": {"A": a, "B": b, "card": card}}),
+          flush=True)
+    for r in b["rows"]:
+        if "luma_band0" in r:
+            print(f"  K2b, {r['stream']} at {r['bands']} bands: the first "
+                  f"luma band alone {r['luma_band0']}", flush=True)
+    report["scaling"] = {
+        "A": [{k: r[k] for k in ("bands", "byte_equal", "wall_fps",
+                                 "halo_bytes_per_frame",
+                                 "bytes_between_bands_per_frame")}
+              for r in a["runs"]],
+        "B": [{k: r[k] for k in ("stream", "kernel", "bands", "calls",
+                                 "device_ms_per_call",
+                                 "full_device_ms_per_frame",
+                                 "share_device_ms_per_frame", "efficiency",
+                                 "wrapper_efficiency")}
+              for r in b["rows"]]}
+    for r in report["scaling"]["B"]:
+        _require(r["device_ms_per_call"] is not None and
+                 r["device_ms_per_call"] > 0, f"scaling part B: no device "
+                 f"time for {r}")
+    return report
 
 
 def main() -> int:
@@ -2658,10 +2844,10 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         ms, plain_ms, label = times[name]
-        l_ms, host_s = launch_ms(timed[name][1], timed[name][3])
+        l_ms, host_ms = launch_ms(timed[name][1], timed[name][3])
         bound_ms, bound_by = bound(name, timed[name][3])
         print(f"  {name:12s} {label}: wrapper {ms:.4f} ms, launch "
-              f"{l_ms:.4f} ms (20 launches queued in {host_s * 1e3:.2f} "
+              f"{l_ms:.4f} ms (20 launches queued in {host_ms:.2f} "
               f"ms of host time), plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), share "
               f"{bound_ms / l_ms:.3f}", flush=True)
@@ -2692,10 +2878,10 @@ def main() -> int:
         of kernel ``name``: entry = (label, kernel_fn, plain_fn, args)."""
         label, kfn, _, args = entry
         ms, plain_ms, _ = time_kernels({name: entry})[name]
-        l_ms, host_s = launch_ms(kfn, args)
+        l_ms, host_ms = launch_ms(kfn, args)
         bound_ms, bound_by = bound(name, args)
         print(f"  {name:12s} {label}: wrapper {ms:.4f} ms, launch "
-              f"{l_ms:.4f} ms (20 launches queued in {host_s * 1e3:.2f} ms "
+              f"{l_ms:.4f} ms (20 launches queued in {host_ms:.2f} ms "
               f"of host time), plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), share "
               f"{bound_ms / l_ms:.3f}", flush=True)
@@ -2720,6 +2906,10 @@ def main() -> int:
     print(f"  lr_sgr       {label}: launch {entry['lr_sgr']['launch_ms']:.4f}"
           f" ms; {entry['lr_sgr']['launch_ms'] / empty_ms:.2f}x the empty "
           f"launch", flush=True)
+    print("== 6. entry points", flush=True)
+    t6 = time.perf_counter()
+    entry_report = entry_points(device, card)
+    print(f"  phase 6 took {time.perf_counter() - t6:.1f} s", flush=True)
     _require(not _jax_modules(), f"jax was imported: {_jax_modules()}")
     print(json.dumps({"decode_fps": fps, "decode_fps_runs": runs,
                       "stage_ms_per_frame": stages, "stream": MAIN_STREAM,
@@ -2738,6 +2928,7 @@ def main() -> int:
                       "key_frame_walks": key_walks,
                       "walk_floor_ms_per_level": floor,
                       "empty_launch_ms": empty_ms,
+                      "entry_points": entry_report,
                       "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,8 @@ unless DAV1D_TPU_DEVICE_IPRED=1).
 from __future__ import annotations
 
 import dataclasses
+import io
+import pickle
 from typing import Optional
 
 import numpy as np
@@ -704,8 +706,6 @@ class Decoder:
         Uses pickle: the payload is decoder-internal state exchanged
         between trusted workers of one deployment, not a container
         format; import only states you produced."""
-        import pickle
-
         self._collect_futures(wait=True)
         if self._pending or self.tile_groups:
             raise RuntimeError("export_state with frames in flight")
@@ -725,10 +725,9 @@ class Decoder:
             refs=slots), protocol=pickle.HIGHEST_PROTOCOL)
 
     def import_state(self, blob: bytes) -> None:
-        """Seed this decoder from export_state() bytes (see there)."""
-        import pickle
-
-        st = pickle.loads(blob)
+        """Seed this decoder from export_state() bytes (see there), this
+        package's or the JAX package's (:func:`load_state`)."""
+        st = load_state(blob)
         self.flush()
         self.seq_hdr = st["seq_hdr"]
         self.operating_point_idc = st["operating_point_idc"]
@@ -757,6 +756,46 @@ class Decoder:
         if self.settings.logger is not None:
             for line in memory_stats().splitlines():
                 self._log(line)
+
+
+# what a state blob may name besides this package's classes: numpy's
+# array and dtype reconstructors and plain builtin types
+_STATE_NUMPY = frozenset({"dtype", "ndarray", "_frombuffer", "_reconstruct",
+                          "scalar"})
+_STATE_BUILTINS = frozenset({"bool", "bytearray", "bytes", "complex", "dict",
+                             "float", "frozenset", "int", "list", "range",
+                             "set", "slice", "str", "tuple"})
+
+
+class _StateUnpickler(pickle.Unpickler):
+    """Unpickler of export_state() blobs.  ``dav1d_tpu.<mod>`` (the JAX
+    package, whose blobs a relay may hand over) reads as
+    ``dav1d_tpu_torch.<mod>``, whose classes are its verbatim copies; the
+    JAX package itself is never imported.  Anything else but a class of
+    this package, numpy's array reconstructors and plain builtin types
+    is refused."""
+
+    def find_class(self, module, name):
+        top = module.split(".")[0]
+        if top == "dav1d_tpu":
+            module = "dav1d_tpu_torch" + module[len("dav1d_tpu"):]
+            top = "dav1d_tpu_torch"
+        if "." not in name:
+            if top == "dav1d_tpu_torch":
+                obj = super().find_class(module, name)
+                if isinstance(obj, type) and obj.__module__ == module:
+                    return obj
+            elif (top == "numpy" and name in _STATE_NUMPY) or \
+                    (module == "builtins" and name in _STATE_BUILTINS):
+                return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"state blob names {module}.{name}, "
+                                     "which a decoder state does not hold")
+
+
+def load_state(blob: bytes) -> dict:
+    """The dict an export_state() blob holds (see :class:`_StateUnpickler`
+    for what it may name)."""
+    return _StateUnpickler(io.BytesIO(blob)).load()
 
 
 def memory_stats() -> str:

@@ -12,7 +12,7 @@ kernel launch through :func:`launch`, every upload through
   and it is called only where a CUDA kernel is launched — a plain
   PyTorch version run on the CPU never counts;
 * ``CAPTURE``: when a list, :func:`launch` appends ``(tag, cfn, args,
-  keep)``, so a caller can repeat the bare C call (``chip_smoke.py``
+  keep)``, so a caller can repeat the bare C call (:func:`replay_ms`
   times launches that way; ``keep`` holds the device tensors the call
   reads that the wrapper does not return);
 * ``SPANS``: when a dict, :func:`span` adds the host wall seconds of
@@ -82,6 +82,59 @@ def launch(tag, cfn, *args, keep=None) -> None:
                            f"({error_string(rc)})")
     with _LAUNCH_LOCK:  # worker threads launch too (Settings.n_threads)
         LAUNCHES[tag] += 1
+
+
+# launches queued behind one spin: well inside CUDA's queue of
+# pending launches, which blocks the host once it is full (so a longer
+# list could never be queued before its spin ends)
+REPLAY_CHUNK = 256
+
+
+def replay_ms(captured, reps=1):
+    """Device ms of one pass over ``captured`` (``CAPTURE`` entries) run
+    again back to back: ``reps`` passes of the bare C calls, in chunks of
+    ``REPLAY_CHUNK`` launches, each chunk queued behind a spin kernel
+    that outlasts the host's queueing and timed by CUDA events around it,
+    so the card runs each chunk without the host between its launches.
+    Returns (ms a pass, host ms of the queueing).  Raises if a launch
+    fails."""
+    calls = [(cfn, cargs) for _ in range(reps)
+             for _, cfn, cargs, _ in captured]
+    dev_ms = host_ms = 0.0
+    for i in range(0, len(calls), REPLAY_CHUNK):
+        d, h = _behind_spin(calls[i:i + REPLAY_CHUNK])
+        dev_ms += d
+        host_ms += h
+    return dev_ms / reps, host_ms
+
+
+def _behind_spin(calls):
+    """(device ms, host ms of the queueing) of ``calls`` queued behind a
+    spin kernel (~50 us a launch).  Where the host took longer to queue
+    them than the spin lasted (the card would have waited on it inside
+    the timed span), they run again behind a spin sized from that
+    reading; raises if a third try is still outrun."""
+    cycles = max(10_000_000, 100_000 * len(calls))
+    for _ in range(3):
+        torch.cuda.synchronize()
+        es, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        h0 = time.perf_counter()
+        es.record()
+        torch.cuda._sleep(cycles)
+        e0.record()
+        rcs = [cfn(*cargs) for cfn, cargs in calls]
+        host_ms = (time.perf_counter() - h0) * 1e3
+        e1.record()
+        torch.cuda.synchronize()
+        if any(rcs):
+            raise RuntimeError(f"replayed launches failed: {rcs}")
+        spin_ms = es.elapsed_time(e0)
+        if host_ms < spin_ms:
+            return e0.elapsed_time(e1), host_ms
+        cycles = int(cycles * 2 * host_ms / spin_ms)
+    raise RuntimeError(f"queueing {len(calls)} launches took {host_ms:.3f} "
+                       f"ms of host time, longer than the {spin_ms:.3f} ms "
+                       "spin ahead of them")
 
 
 @contextlib.contextmanager

@@ -10,7 +10,8 @@ source, all started together, then one link:
 
 The library is built at first use into ``dav1d_tpu_torch/_build/``
 (listed in .gitignore), named by a hash of the sources and flags, so a
-changed source rebuilds and an unchanged one loads at once.  ptxas's
+changed source rebuilds and an unchanged one loads at once; a file lock
+there keeps processes that start together to one build.  ptxas's
 register/spill report is kept beside it (``<lib>.log``).  Nothing here
 runs at import: the CPU tests import every module of the package.
 
@@ -22,6 +23,7 @@ passes ``torch.cuda.current_stream()``) and returns ``cudaGetLastError()``;
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -65,10 +67,22 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile csrc/*.cu into the hash-tagged library (once) and return
     its path.  Raises with the compiler's output if nvcc fails."""
-    out = BUILD_DIR / f"libdav1d_tpu_torch_{_tag()}.so"
+    tag = _tag()
+    out = BUILD_DIR / f"libdav1d_tpu_torch_{tag}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # one build per tag at a time (worker processes start together,
+    # dav1d_tpu_torch/gop.py): the first to hold the lock builds, the
+    # others find its library
+    with open(BUILD_DIR / f"kernels_{tag}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     nvcc = _nvcc()
     tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
@@ -91,7 +105,6 @@ def build() -> Path:
         os.replace(tmp / "lib.so", out)  # atomic: no partial file loads
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return out
 
 
 def _check(cmd, log, rc):

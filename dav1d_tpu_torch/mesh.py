@@ -154,11 +154,20 @@ class Mesh:
         _count_moved(t for b, t in enumerate(out) if b not in self.local)
         return out
 
-    def stitch(self, bands: dict, H: int) -> torch.Tensor:
-        """The plane of ``H`` rows on ``devices[0]`` from every band's rows
-        (``bands``: {local band: its rows}), on every rank in the
-        process-group form."""
-        return self.fetch([bands[b] for b in self.local])[:H]
+    def stitch(self, bands: dict, plane: torch.Tensor) -> torch.Tensor:
+        """``plane`` (on ``devices[0]``) with its rows replaced by every
+        band's rows (``bands``: {local band: its rows}), on every rank in
+        the process-group form.  Rows of the allocation past the last
+        band (where the bands' ``n * bh`` rows end before the plane's:
+        a one-band mesh on a plane allocated in 128-row superblocks) lie
+        past the filtered rows and keep the plane's values, as the
+        reference writes back only the filtered rows
+        (dav1d_tpu/recon/mesh_lf.py:184)."""
+        out = self.fetch([bands[b] for b in self.local])
+        H = plane.shape[0]
+        if out.shape[0] >= H:
+            return out[:H]
+        return torch.cat([out, plane[out.shape[0]:]])
 
     def edge_rows(self, bands: dict, k: int) -> list:
         """Every band's first ``k`` and last ``k`` rows, stacked (2k rows a

@@ -76,7 +76,6 @@ def filter_plane_mesh(mesh, plane: torch.Tensor, maps: dict, ph: int,
     strengths ``pri``, ``sec`` as ops/cdef.cdef_filter_plane_resident
     takes them, ``maps`` from :func:`dir_maps_mesh` (or {band: zero
     maps}).  Returns the filtered plane."""
-    H = plane.shape[0]
     bh = mesh.band_rows(ph)
     bands = mesh.split(plane, bh)
     sent = mesh.edge_rows(bands, HALO)
@@ -105,4 +104,4 @@ def filter_plane_mesh(mesh, plane: torch.Tensor, maps: dict, ph: int,
             np.asarray(uys)[sel] - y0, np.asarray(uxs)[sel], w, h,
             np.asarray(pri)[sel], np.asarray(sec)[sel], damping, bitdepth,
             luma, layout_422, top, bottom)
-    return mesh.stitch(out, H)
+    return mesh.stitch(out, plane)

@@ -108,4 +108,4 @@ def deblock_plane_mesh(mesh, plane: torch.Tensor, v_edges, h_edges, ph: int,
                 core[-HALO:] = torch.where(got != mine[HALO:], got,
                                            core[-HALO:])
             bands[b] = core
-    return mesh.stitch(bands, H)
+    return mesh.stitch(bands, plane)

@@ -293,12 +293,18 @@ COMMITTED = {
 }
 
 
+# committed streams held elsewhere: the 8-frame 1080p GOP stream only by
+# chip_smoke.py on the card, the 2x2-tile stream by
+# tests/test_torch_entry.py
+ELSEWHERE = ("gop_1080p_8bit.ivf", "tiles2x2_256x192.ivf")
+
+
 @pytest.mark.parametrize("name", sorted(COMMITTED))
 def test_committed_stream_md5(name):
     from dav1d_tpu_torch import devrt
 
     assert sorted(json.loads((DATA / "md5.json").read_text())) == \
-        sorted(COMMITTED)
+        sorted([*COMMITTED, *ELSEWHERE])
     want = json.loads((DATA / "md5.json").read_text())[name]
     n, md5 = _port_md5((DATA / name).read_bytes())
     assert (n, md5) == (want["frames"], want["md5"])

@@ -59,7 +59,9 @@ def _captured(devrt, fn, args, kw):
 
 def _back_to_back_ms(torch, launches, reps):
     """Device ms of one pass over ``launches`` [(cfn, cargs)], ``reps``
-    passes queued behind a spin kernel."""
+    passes queued behind a spin kernel.  The probe's own timer, not the
+    package's ``devrt.replay_ms``: the trees it compares are timed
+    alike, whatever each tree's package holds."""
     torch.cuda.synchronize()
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda._sleep(20_000_000)

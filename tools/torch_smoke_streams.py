@@ -26,16 +26,28 @@ streams and their expected md5s are made here and committed:
   (1 key + 3 inter), libaom cpu_used=4, q=40, loop restoration on:
   ``i422_8bit_256x192.ivf`` (4:2:2 8-bit), ``i444_10bit_256x192.ivf``
   (4:4:4 10-bit), ``i420_12bit_256x192.ivf`` (4:2:0 12-bit) and
-  ``mono_8bit_256x192.ivf`` (monochrome 8-bit).
+  ``mono_8bit_256x192.ivf`` (monochrome 8-bit);
+- ``gop_1080p_8bit.ivf``: the main stream's settings at 8 frames with
+  ``kf_max_dist=4``, so two key-frame-led GOPs (the GOP-parallel and
+  relay decodes of dav1d_tpu_torch/gop.py on the card);
+- ``tiles2x2_256x192.ivf``: __graft_entry__.dryrun_multichip's stream
+  (256x192 8-bit, 4 frames, libaom cpu_used=6, q=40, kf_max_dist=4,
+  2x2 tiles), for dav1d_tpu_torch/entry.dryrun_multichip.
 
 The md5 of each stream is the JAX package's host tier
 (DAV1D_TPU_DEVICE=0) over every plane of every output picture, in the
-tests/test_device_e2e._decode_md5 convention.
+tests/test_device_e2e._decode_md5 convention.  For the streams of
+``CLI_STREAMS`` two more fields come from the JAX package's own tools,
+each in a subprocess on its host tier: ``cli_md5``, the digest that
+``tools/dav1d_tpu_cli.py --muxer md5`` prints (film grain off, as that
+muxer's default), and ``ppm_md5``, the md5 over the files that
+``tools/dav1d_tpu_play.py --ppm DIR --limit 2`` writes, in name order.
 
 Run from the repository root (with names, only those streams are
-made and only their md5 entries replaced):
+made and only their md5 entries replaced; ``--no-encode`` keeps the
+committed files and only recomputes their entries):
 
-    python tools/torch_smoke_streams.py [name.ivf ...]
+    python tools/torch_smoke_streams.py [--no-encode] [name.ivf ...]
 """
 
 from __future__ import annotations
@@ -43,7 +55,9 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -97,6 +111,15 @@ for _name, _fmt, _bd, _mono in (("i422_8bit_256x192.ivf", "422", 8, False),
                  fmt=_fmt, monochrome=_mono,
                  options={"enable-order-hint": 1,
                           "enable-restoration": 1}))
+STREAMS["gop_1080p_8bit.ivf"] = dict(
+    STREAMS["inter_1080p_8bit.ivf"], n=8,
+    enc=dict(STREAMS["inter_1080p_8bit.ivf"]["enc"], kf_max_dist=4))
+STREAMS["tiles2x2_256x192.ivf"] = dict(
+    n=4, w=256, h=192, bitdepth=8,
+    enc=dict(usage="good", cpu_used=6, q=40, kf_max_dist=4, lag=0,
+             options={"tile-columns": 1, "tile-rows": 1}))
+# streams whose entries also hold the JAX CLI's and player's digests
+CLI_STREAMS = ("inter_1080p_8bit.ivf",)
 
 
 def _frames(spec):
@@ -128,25 +151,49 @@ def _host_md5(data: bytes):
     return n, h.hexdigest()
 
 
+def _tool_md5s(path: Path) -> dict:
+    """``cli_md5`` and ``ppm_md5`` of a stream, from the JAX package's
+    CLI and player run on its host tier."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", DAV1D_TPU_DEVICE="0")
+    r = subprocess.run([sys.executable, str(ROOT / "tools" /
+                                            "dav1d_tpu_cli.py"),
+                        "-i", str(path), "--muxer", "md5", "-o", "-", "-q"],
+                       capture_output=True, text=True, env=env, check=True)
+    with tempfile.TemporaryDirectory() as d:
+        subprocess.run([sys.executable, str(ROOT / "tools" /
+                                            "dav1d_tpu_play.py"),
+                        "-i", str(path), "--ppm", d, "--limit", "2"],
+                       capture_output=True, env=env, check=True)
+        h = hashlib.md5()
+        for f in sorted(Path(d).iterdir()):
+            h.update(f.read_bytes())
+    return {"cli_md5": r.stdout.split()[0], "ppm_md5": h.hexdigest()}
+
+
 def main() -> None:
     os.environ["DAV1D_TPU_DEVICE"] = "0"
     from aom_enc import AomEncoder, write_ivf_packets
 
     OUT.mkdir(parents=True, exist_ok=True)
-    names = sys.argv[1:] or list(STREAMS)
+    args = sys.argv[1:]
+    encode = "--no-encode" not in args
+    names = [a for a in args if a != "--no-encode"] or list(STREAMS)
     md5_path = OUT / "md5.json"
     md5s = json.loads(md5_path.read_text()) if md5_path.exists() else {}
     for name in names:
         spec = STREAMS[name]
         w, h, bd = spec["w"], spec["h"], spec["bitdepth"]
-        enc = AomEncoder(width=w, height=h, bitdepth=bd, **spec["enc"])
-        pkts = enc.encode(_frames(spec))
-        enc.close()
         path = OUT / name
-        write_ivf_packets(path, pkts, w, h)
+        if encode:
+            enc = AomEncoder(width=w, height=h, bitdepth=bd, **spec["enc"])
+            pkts = enc.encode(_frames(spec))
+            enc.close()
+            write_ivf_packets(path, pkts, w, h)
         n, md5 = _host_md5(path.read_bytes())
         md5s[name] = {"frames": n, "md5": md5, "width": w, "height": h,
                       "bitdepth": bd, "bytes": path.stat().st_size}
+        if name in CLI_STREAMS:
+            md5s[name].update(_tool_md5s(path))
         print(name, md5s[name], flush=True)
     md5s = {k: md5s[k] for k in STREAMS if k in md5s}
     md5_path.write_text(json.dumps(md5s, indent=1) + "\n")
