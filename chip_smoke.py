@@ -166,7 +166,33 @@ Phases; any failure exits non-zero:
    device, with the halo and band work per frame) and B (the band
    kernels' calls of the main and restoration streams replayed at full
    size and at the 1/n share, CUDA events), printed on a line of their
-   own.
+   own;
+7. the JAX suite's AV1 features on the card: every stream of
+   dav1d_tpu_torch/data/features/ (one per libaom recipe of
+   tests/test_e2e_aom.py ``CASES`` and ``SCREEN_CASES``, and its annexb
+   and section-5 streams; ``tools/torch_smoke_streams.py --features``)
+   with ``Decoder(..., device="cuda")`` in fused mode (``two_pass=False``,
+   ``Settings()``'s default), in two-pass mode and in two-pass mode with
+   ``device_intra=True`` (the 4K stream without it), each against the
+   JAX package's md5 in features/md5.json; after each fused and
+   two-pass decode every reference slot's host planes equal its
+   resident device planes; frame by frame: a coded-lossless frame
+   launches no deblock, CDEF, restoration or resize kernel (and its
+   frame's itx launch ran in two-pass mode), the resize kernel once on
+   every super-res frame and on no other, no MC or itx launch in fused
+   mode and the chain's launches of two-pass mode, fg once per grained
+   plane on the grain streams, and with device intra the walk checks of
+   phase 4; the odd geometries (odd sizes, 4:4:4 at 347x251, 64x64
+   superblocks, 2x2 tiles, 4K) with a mesh of 2 and of 3 bands on the
+   card, against their md5s and the band launch checks; the MC, itx,
+   CDEF filter, resize and restoration calls of the two-pass decodes of
+   the kitchen-sink, lossless, 12-bit, random super-res, 4:4:4
+   restoration, small super-res and multi-unit restoration (self-guided
+   units) streams held against the plain versions, exactly; the
+   CLI with ``--twopass 0`` on the kitchen-sink stream against its md5;
+   film grain's 10-bit chroma launches (``grain_10bit`` and the
+   committed 352x288 10-bit stream) timed (device time, bound); one line
+   per decode: stream, mode, frames, md5, launches by kernel, frames/s.
 
 The line before the last is the kernels' JSON report; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -236,6 +262,32 @@ SCALING_BANDS = (1, 2, 4)
 # the main stream's kernels (K3, K4, K1, K2, K5), counted in the CLI's run
 CLI_KERNELS = ("mc", "itx", "deblock_v", "deblock_h", "cdef_filter",
                "cdef_dir")
+
+# phase 7, the JAX suite's AV1 features (module docstring)
+FEATURE_DIR = DATA / "features"
+FEATURE_MODES = ("fused", "two_pass", "device_intra")
+# decoded without device_intra (its Python schedule at 3840x2160)
+FEATURE_NO_INTRA = ("uhd4k_smoke.ivf",)
+# the odd geometries, decoded again with a mesh of each of these bands
+FEATURE_MESH = ("odd_size.ivf", "restoration_444_odd.ivf", "screen_odd.ivf",
+                "sb64.ivf", "superres_random.ivf", "tiles_full.ivf",
+                "uhd4k_smoke.ivf")
+FEATURE_MESH_BANDS = (2, 3)
+# the two-pass decodes whose own kernel calls are held against the plain
+# versions (superres_lr: the small super-res stream, resize;
+# restoration_multiunit: the one with self-guided units)
+FEATURE_CALLS = ("kitchen_sink.ivf", "lossless.ivf", "hbd12.ivf",
+                 "superres_random.ivf", "restoration_444_odd.ivf",
+                 "superres_lr.ivf", "restoration_multiunit.ivf")
+CALL_TAGS = ("mc", "itx", "cdef_filter", "resize", "lr_wiener", "lr_sgr")
+# film grain on every picture: one fg launch per grained plane
+FEATURE_GRAIN = ("grain.ivf", "grain_10bit.ivf",
+                 "fhd_grain_superres_tiles.ivf")
+# the CLI in fused mode (--twopass 0)
+FEATURE_CLI = "kitchen_sink.ivf"
+# the kernels a coded-lossless frame must not launch
+FILTER_KERNELS = ("deblock_v", "deblock_h", "cdef_dir", "cdef_filter",
+                  "cdef_filter_band", "lr_wiener", "lr_sgr", "resize")
 
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -1216,20 +1268,24 @@ def mesh_of(device, bands):
 
 
 def decode(data, device, hashing=True, device_intra=False, bands=0,
-           n_threads=0):
-    """Decode an IVF stream with the port's public API (``bands``: a mesh
-    of that many bands on ``device``; ``n_threads``: Settings.n_threads);
+           n_threads=0, two_pass=True, container="ivf", check_refs=False):
+    """Decode a stream with the port's public API (``bands``: a mesh of
+    that many bands on ``device``; ``n_threads``: Settings.n_threads;
+    ``two_pass=False``: fused mode; ``container``: ivf, or annexb and
+    section5 through containers.open_stream; ``check_refs``: at the end,
+    every reference slot's host planes must equal its resident planes);
     returns (frames, md5 over every plane of every picture, inter
     frames)."""
-    from dav1d_tpu_torch.containers import read_ivf
+    from dav1d_tpu_torch.containers import open_stream, read_ivf
     from dav1d_tpu_torch.decoder import Decoder, Settings
 
-    dec = Decoder(Settings(two_pass=True, max_frame_delay=4,
+    dec = Decoder(Settings(two_pass=two_pass, max_frame_delay=4,
                            mesh=mesh_of(device, bands), n_threads=n_threads),
                   device=device, device_intra=device_intra)
     h = hashlib.md5()
     n = n_inter = 0
-    for tu, _ in read_ivf(data):
+    units = read_ivf(data) if container == "ivf" else open_stream(data)
+    for tu, _ in units:
         dec.send_data(tu)
         while (pic := dec.get_picture()) is not None:
             if hashing:
@@ -1237,8 +1293,40 @@ def decode(data, device, hashing=True, device_intra=False, bands=0,
                     h.update(pic.plane_bytes(pl))
             n += 1
             n_inter += bool(pic.frame_hdr.frame_type.is_inter_or_switch)
+    if check_refs:
+        check_ref_slots(dec)
     dec.close()
     return n, h.hexdigest(), n_inter
+
+
+def check_ref_slots(dec):
+    """Every reference slot's host planes (what the next frame's fused
+    pass 1 and the host replay read) equal its resident device planes
+    (what the device MC and film grain read)."""
+    import torch
+
+    seen = set()
+    for i, slot in enumerate(dec.refs):
+        if slot.dev_planes is None or id(slot) in seen:
+            continue
+        seen.add(id(slot))
+        _require(len(slot.dev_planes) == len(slot.planes), f"ref slot {i}: "
+                 f"{len(slot.dev_planes)} device planes for "
+                 f"{len(slot.planes)} host planes")
+        for pl, (host, dev) in enumerate(zip(slot.planes, slot.dev_planes)):
+            h, w = host.shape
+            _require(dev.shape[0] >= h and dev.shape[1] >= w,
+                     f"ref slot {i} plane {pl}: device plane "
+                     f"{tuple(dev.shape)} smaller than the host plane "
+                     f"{host.shape}")
+            got = dev[:h, :w].cpu().to(torch.int64)
+            ref = torch.from_numpy(host).to(torch.int64)
+            if not torch.equal(got, ref):
+                y, x = (got != ref).nonzero()[0].tolist()
+                raise SmokeError(f"ref slot {i} plane {pl}: device plane "
+                                 f"differs from the host plane first at "
+                                 f"(y, x) = ({y}, {x}): {int(got[y, x])} "
+                                 f"against {int(ref[y, x])}")
 
 
 def decode_checked(name, device, device_intra=False, bands=0,
@@ -1721,6 +1809,7 @@ class ChainLog:
             hdr = f.frame_hdr
             self.frames.append({
                 "resize": hdr.width[0] != hdr.width[1],
+                "lossless": bool(hdr.all_lossless),
                 "lr": bool(f.restore_planes and (f.inloop_filters & 4)),
                 "launches": dict(devrt.LAUNCHES - l0),
                 "units": dict(devrt.COUNTS - c0), **cur})
@@ -2014,43 +2103,57 @@ def check_lr_frames(name, frames, n):
                      f"plane uploads {fr['uploads']}")
 
 
+def check_band_launches(where, fr, bands, live):
+    """One frame of a mesh decode (a ChainLog record): each band kernel
+    launched once per band or share that the mesh counted for it, the
+    direction search on every band with luma rows (``live`` of them) or
+    on none, the restoration kernels once per share holding their units,
+    every share of a plane holding some, resize once on a super-res
+    frame.  Returns the frame's launch counts by kind of band work."""
+    k, u = fr["launches"], fr["units"]
+    got = {}
+    for d in ("v", "h"):
+        got[d], want = k.get(f"deblock_{d}", 0), \
+            u.get(f"mesh_deblock_{d}_bands", 0)
+        _require(got[d] == want, f"{where}: {got[d]} deblock_{d} launches "
+                 f"for {want} bands with edges")
+    n_dir, want = k.get("cdef_dir", 0), u.get("mesh_cdef_dir_bands", 0)
+    _require(n_dir == want in (0, live), f"{where}: {n_dir} cdef_dir "
+             f"launches, {want} bands searched, {live} luma bands")
+    got["cdef"] = k.get("cdef_filter", 0) + k.get("cdef_filter_band", 0)
+    want = u.get("mesh_cdef_bands", 0)
+    _require(got["cdef"] == want, f"{where}: {got['cdef']} CDEF filter "
+             f"launches for {want} bands and planes with units")
+    for kind in ("wiener", "sgr"):
+        n_lr = k.get(f"lr_{kind}", 0)
+        want = u.get(f"mesh_lr_{kind}_shares", 0)
+        units = u.get(f"lr_{kind}_units", 0)
+        _require(n_lr == want >= min(units, bands), f"{where}: {n_lr} "
+                 f"lr_{kind} launches for {want} shares holding {units} "
+                 "units")
+    _require(k.get("resize", 0) == int(fr["resize"]), f"{where}: super-res "
+             f"{fr['resize']} with {k.get('resize', 0)} resize launches")
+    return got
+
+
 def check_mesh_frames(name, frames, n, bands, ph, bh):
     """A mesh decode's frame-by-frame launch checks (phase 4): per frame,
-    K1 once per band and direction with edges, every band with filtered
-    luma rows among them; K5 once per band with filtered luma rows where
-    the frame searches directions; K2 (whole-plane and band form) once
-    per band and plane with units; the restoration kernels once per
-    share holding their units, every share of a plane holding some.
-    ``ph``: the luma plane's rows, ``bh``: its bands' rows.  Returns the
-    halo bytes of each frame."""
+    :func:`check_band_launches`, with K1 on every band with filtered luma
+    rows and K2 on at least one band (these streams deblock and
+    CDEF-filter every frame).  ``ph``: the luma plane's rows, ``bh``: its
+    bands' rows.  Returns the halo bytes of each frame."""
     _require(len(frames) == n, f"{name}: {len(frames)} chain runs for "
              f"{n} frames")
     live = -(-ph // bh)
     halo = []
     for i, fr in enumerate(frames):
-        k, u = fr["launches"], fr["units"]
         where = f"{name} mesh of {bands} frame {i}"
-        for d in ("v", "h"):
-            got, want = k.get(f"deblock_{d}", 0), \
-                u.get(f"mesh_deblock_{d}_bands", 0)
-            _require(got == want >= live, f"{where}: {got} deblock_{d} "
-                     f"launches for {want} bands with edges, want every "
-                     f"one of the {live} bands with luma rows among them")
-        got, want = k.get("cdef_dir", 0), u.get("mesh_cdef_dir_bands", 0)
-        _require(got == want in (0, live), f"{where}: {got} cdef_dir "
-                 f"launches, {want} bands searched, {live} luma bands")
-        got = k.get("cdef_filter", 0) + k.get("cdef_filter_band", 0)
-        want = u.get("mesh_cdef_bands", 0)
-        _require(got == want >= 1, f"{where}: {got} CDEF filter launches "
-                 f"for {want} bands and planes with units")
-        for kind in ("wiener", "sgr"):
-            got = k.get(f"lr_{kind}", 0)
-            want = u.get(f"mesh_lr_{kind}_shares", 0)
-            units = u.get(f"lr_{kind}_units", 0)
-            _require(got == want >= min(units, bands), f"{where}: {got} "
-                     f"lr_{kind} launches for {want} shares holding "
-                     f"{units} units")
-        halo.append(u.get("halo_bytes", 0))
+        got = check_band_launches(where, fr, bands, live)
+        _require(min(got["v"], got["h"]) >= live and got["cdef"] >= 1,
+                 f"{where}: deblock launches {got['v']} / {got['h']} for "
+                 f"{live} bands with luma rows, {got['cdef']} CDEF filter "
+                 "launches")
+        halo.append(fr["units"].get("halo_bytes", 0))
     return halo
 
 
@@ -2234,6 +2337,225 @@ def entry_points(device, card) -> dict:
         _require(r["device_ms_per_call"] is not None and
                  r["device_ms_per_call"] > 0, f"scaling part B: no device "
                  f"time for {r}")
+    return report
+
+
+def check_feature_frames(where, mode, frames, grain, intra, launches,
+                         pictures, grained):
+    """Phase 7's frame-by-frame launch checks of one decode (``frames``:
+    ChainLog records, one a decoded frame; ``grain`` / ``intra``:
+    FrameLog records; ``grained``: film grain on each of the
+    ``pictures``)."""
+    n_decoded = len(frames)
+    for i, fr in enumerate(frames):
+        k = fr["launches"]
+        _require(k.get("resize", 0) == int(fr["resize"]), f"{where} frame "
+                 f"{i}: super-res {fr['resize']} with {k.get('resize', 0)} "
+                 f"resize launches, want one a super-res frame")
+        if fr["lossless"]:
+            _require(not any(k.get(t, 0) for t in FILTER_KERNELS),
+                     f"{where} frame {i}: a coded-lossless frame launched "
+                     f"{k}")
+    if mode == "fused":
+        _require(not launches.get("mc") and not launches.get("itx"),
+                 f"{where}: fused mode launched mc / itx: {launches}")
+    else:
+        # one itx launch a frame with coefficients
+        _require(1 <= launches.get("itx", 0) <= n_decoded, f"{where}: "
+                 f"{launches.get('itx', 0)} itx launches for {n_decoded} "
+                 "decoded frames")
+    if grained:
+        check_grain_frames(where, grain, pictures)
+    if mode == "device_intra":
+        check_intra_frames(where, intra)
+
+
+def _call_plains():
+    from dav1d_tpu_torch.ops import cdef as ocdef
+    from dav1d_tpu_torch.ops import itx as oitx
+    from dav1d_tpu_torch.ops import lr as olr
+    from dav1d_tpu_torch.ops import mc as omc
+    from dav1d_tpu_torch.ops import resize as oresize
+
+    return {"mc": (omc.put_8tap_resident, omc.put_8tap_resident_plain),
+            "itx": (oitx.itx_frame, _itx_plain),
+            "cdef_filter": (ocdef.filter_plane, ocdef.filter_plane_plain),
+            "resize": (oresize.resize_planes, oresize.resize_planes_plain),
+            "lr_wiener": (olr.wiener, olr.wiener_plain),
+            "lr_sgr": (olr.sgr, olr.sgr_plain)}
+
+
+def features(device, card) -> dict:
+    """Phase 7: the JAX suite's AV1 feature streams on the card (module
+    docstring).  Returns its report; its "launches" are the kernels'
+    launches over its decodes, counted from 0 before each."""
+    import tempfile
+
+    import torch
+
+    from dav1d_tpu_torch import devrt
+    from dav1d_tpu_torch.ops import fg as ofg
+
+    md5s = json.loads((FEATURE_DIR / "md5.json").read_text())
+    _require(md5s, f"no feature streams in {FEATURE_DIR}")
+    plains = _call_plains()
+    report = {"decodes": [], "mesh": [], "calls": {}, "card": card}
+    totals = collections.Counter()
+    fg_hbd = []
+    for name in sorted(md5s):
+        e = md5s[name]
+        data = (FEATURE_DIR / name).read_bytes()
+        chain = {}
+        for mode in FEATURE_MODES:
+            if mode == "device_intra" and name in FEATURE_NO_INTRA:
+                continue
+            devrt.LAUNCHES.clear()
+            devrt.COUNTS.clear()
+            keep = mode == "two_pass" and (
+                name in FEATURE_CALLS or (e["bitdepth"] > 8 and
+                                          name in FEATURE_GRAIN))
+            devrt.SINK = [] if keep else None
+            t0 = time.perf_counter()
+            try:
+                with ChainLog() as clog, FrameLog() as flog:
+                    n, md5, _ = decode(
+                        data, device, two_pass=mode != "fused",
+                        device_intra=mode == "device_intra",
+                        container=e["container"], check_refs=True)
+            finally:
+                sink, devrt.SINK = devrt.SINK, None
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in sorted(devrt.LAUNCHES.items()) if v}
+            where = f"{name} [{mode}]"
+            print(f"  {where}: {n} frames, md5 {md5} "
+                  f"{'held' if md5 == e['md5'] else 'WANT ' + e['md5']}, "
+                  f"launches {launches}, {n / wall:.3f} frames/s "
+                  f"({e['width']}x{e['height']} {e['layout']} "
+                  f"{e['bitdepth']}-bit)", flush=True)
+            _require((n, md5) == (e["frames"], e["md5"]), f"{where}: "
+                     f"decoded {n} frames md5 {md5}, want {e['frames']} "
+                     f"frames md5 {e['md5']}")
+            check_feature_frames(where, mode, clog.frames, flog.grain,
+                                 flog.intra, launches, n,
+                                 name in FEATURE_GRAIN)
+            chain[mode] = [{k: v for k, v in fr["launches"].items()
+                            if k not in ("mc", "itx")}
+                           for fr in clog.frames]
+            totals.update(launches)
+            report["decodes"].append({"stream": name, "mode": mode,
+                                      "frames": n, "fps": n / wall})
+            for tag, fn, args, kw in sink or ():
+                if tag == "fg":
+                    if args[8].pl:
+                        fg_hbd.append((name, args))
+                    continue
+                if tag not in plains:
+                    continue
+                kfn, pfn = plains[tag]
+                # of the keywords only the restoration calls' chunk tables
+                kw = {k: v for k, v in kw.items() if k == "chunks"}
+                err = _max_abs_err(kfn(*args, **kw), pfn(*args))
+                c = report["calls"].setdefault(tag, {"calls": 0,
+                                                     "max_abs_err": 0})
+                c["calls"] += 1
+                c["max_abs_err"] = max(c["max_abs_err"], err)
+                _require(err == 0, f"{where}: a {tag} call of the decode "
+                         f"disagrees with its plain version (max_abs_err "
+                         f"{err})")
+            del sink
+        # fused mode: the chain's launches of two-pass mode, frame by frame
+        _require(chain["fused"] == chain["two_pass"], f"{name}: the fused "
+                 f"decode's chain launches {chain['fused']} differ from "
+                 f"the two-pass decode's {chain['two_pass']}")
+    print(f"  the decodes' own calls against the plain versions: "
+          f"{report['calls']}", flush=True)
+    for tag in CALL_TAGS:
+        _require(report["calls"].get(tag, {}).get("calls", 0) > 0,
+                 f"phase 7: no {tag} call of the held decodes")
+    # the odd geometries with bands on the card
+    for name in FEATURE_MESH:
+        e = md5s[name]
+        data = (FEATURE_DIR / name).read_bytes()
+        for bands in FEATURE_MESH_BANDS:
+            devrt.LAUNCHES.clear()
+            devrt.COUNTS.clear()
+            t0 = time.perf_counter()
+            with ChainLog() as clog:
+                n, md5, _ = decode(data, device, bands=bands,
+                                   container=e["container"],
+                                   check_refs=True)
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in sorted(devrt.LAUNCHES.items()) if v}
+            where = f"{name} [mesh of {bands}]"
+            print(f"  {where}: {n} frames, md5 {md5} "
+                  f"{'held' if md5 == e['md5'] else 'WANT ' + e['md5']}, "
+                  f"launches {launches}, {n / wall:.3f} frames/s", flush=True)
+            _require((n, md5) == (e["frames"], e["md5"]), f"{where}: "
+                     f"decoded {n} frames md5 {md5}, want {e['frames']} "
+                     f"frames md5 {e['md5']}")
+            live = -(-e["height"] // mesh_of(device, bands)
+                     .band_rows(e["height"]))
+            for i, fr in enumerate(clog.frames):
+                check_band_launches(f"{where} frame {i}", fr, bands, live)
+            _require(launches.get("itx", 0) == devrt.COUNTS.get(
+                "mesh_itx_shares", 0) >= len(clog.frames), f"{where}: "
+                f"{launches.get('itx', 0)} itx launches for "
+                f"{devrt.COUNTS.get('mesh_itx_shares', 0)} shares")
+            totals.update(launches)
+            report["mesh"].append({"stream": name, "bands": bands,
+                                   "frames": n, "fps": n / wall})
+    # the CLI in fused mode
+    e = md5s[FEATURE_CLI]
+    with tempfile.TemporaryDirectory(dir=ROOT / "dav1d_tpu_torch"
+                                     / "_build") as tmp:
+        out = Path(tmp) / "out.md5"
+        rc, err, cli_launches = _cli("-i", FEATURE_DIR / FEATURE_CLI,
+                                     "--muxer", "md5", "-o", out,
+                                     "--twopass", "0", "--verify", e["md5"])
+        _require(rc == 0 and "verify OK" in err, f"cli --twopass 0 on "
+                 f"{FEATURE_CLI}: exit {rc}, stderr {err[-2000:]}")
+        got = out.read_text().split()[0]
+    _require(got == e["md5"], f"cli --twopass 0: md5 {got}, want "
+             f"{e['md5']}")
+    _require(not cli_launches.get("mc") and not cli_launches.get("itx")
+             and cli_launches.get("deblock_v", 0) >= 1, f"cli --twopass 0:"
+             f" launches {cli_launches}")
+    report["cli_fused"] = {"stream": FEATURE_CLI, "md5": got,
+                           "launches": cli_launches}
+    print(f"  cli --twopass 0 on {FEATURE_CLI}: md5 {got} held, launches "
+          f"{cli_launches}", flush=True)
+    # film grain on 10-bit chroma: the decodes' calls, and the committed
+    # 352x288 10-bit stream's
+    devrt.SINK = []
+    try:
+        decode((DATA / FG_HBD_STREAM).read_bytes(), device, hashing=False)
+    finally:
+        sink, devrt.SINK = devrt.SINK, None
+    fg_hbd += [(FG_HBD_STREAM, a) for t, _, a, _ in sink
+               if t == "fg" and a[8].pl]
+    _require(fg_hbd, "no 10-bit chroma fg call")
+    for name, args in fg_hbd:
+        err = _max_abs_err(ofg.apply_plane(*args),
+                           ofg.apply_plane_plain(*args))
+        _require(err == 0, f"{name}: a 10-bit chroma fg call disagrees with "
+                 f"its plain version (max_abs_err {err})")
+    report["fg_10bit_chroma"] = []
+    for name in sorted({r[0] for r in fg_hbd}):
+        # the largest chroma plane of the stream
+        args = max((a for n_, a in fg_hbd if n_ == name),
+                   key=lambda a: a[5] * a[6])
+        l_ms, _ = launch_ms(ofg.apply_plane, args)
+        b_ms, b_by = bound("fg", args)
+        r = {"stream": name, "plane": int(args[8].pl),
+             "w": int(args[5]), "h": int(args[6]), "launch_ms": l_ms,
+             "bound_ms": b_ms, "bound_by": b_by,
+             "calls": sum(n_ == name for n_, _ in fg_hbd)}
+        report["fg_10bit_chroma"].append(r)
+        print(f"  fg 10-bit chroma, {name} plane {r['plane']} "
+              f"({r['w']}x{r['h']}): launch {l_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}), share {b_ms / l_ms:.3f}; "
+              f"{r['calls']} chroma calls held exactly", flush=True)
+    report["launches"] = dict(totals)
     return report
 
 
@@ -2910,6 +3232,13 @@ def main() -> int:
     t6 = time.perf_counter()
     entry_report = entry_points(device, card)
     print(f"  phase 6 took {time.perf_counter() - t6:.1f} s", flush=True)
+    print("== 7. the JAX suite's AV1 features", flush=True)
+    t7 = time.perf_counter()
+    feature_report = features(device, card)
+    print(json.dumps({"features": feature_report}), flush=True)
+    print(f"  phase 7 took {time.perf_counter() - t7:.1f} s", flush=True)
+    for k in kernels:
+        k["feature_launches"] = feature_report["launches"].get(k["name"], 0)
     _require(not _jax_modules(), f"jax was imported: {_jax_modules()}")
     print(json.dumps({"decode_fps": fps, "decode_fps_runs": runs,
                       "stage_ms_per_frame": stages, "stream": MAIN_STREAM,
