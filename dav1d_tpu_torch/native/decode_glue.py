@@ -13,7 +13,7 @@ import ctypes
 
 import numpy as np
 
-from .. import tables
+from .. import devrt, tables
 from . import CMsac, CRefMvsFrame, DtpuCoefCtx, lib as _native
 
 _ptr = ctypes.c_void_p
@@ -360,21 +360,37 @@ def _pool_get(name, shape, dtype):
     return np.zeros(shape, dtype=dtype)
 
 
-def _pool_put(name, arr, used_rows):
-    """Return an arena, re-zeroing the prefix the frame consumed when the
-    caller says so.  Only writers with a zero precondition pass a count:
-    the coefficient arena (decode_coefs stores just the nonzero scan
-    positions of each slot, so a reused slot must read as 0 beyond them)
-    and, in tile-parallel mode, the block arena (the dense consumers —
-    the device-MC batcher and finish() — scan [0:n_blocks] and rely on
-    the inter-slice gap records being all-zero).  Every other arena is
-    fully written per record (cap_block_begin memsets, emit_coef/obmc/
-    warp/pal write every field, read_pal_indices memsets its own slice),
-    so recycling them dirty is sound and skips multi-MB clears."""
-    if used_rows:
-        arr[:used_rows] = 0
+def _pool_put(name, arr, used):
+    """Return an arena to the pool, re-zeroing the [start, end) ranges
+    in ``used`` that the frame wrote, so that every pooled arena reads
+    all-zero.  Two kinds of users rely on that: a reused coefficient
+    slot must read 0 beyond the nonzero scan positions decode_coefs
+    stores, and in a tile-sliced frame the dense consumers of the block
+    arena (the device-MC batcher) scan [0:n_blocks] and read the gap
+    records between the slices as zero.  The other arenas are written
+    whole per record (cap_block_begin memsets, emit_coef/obmc/warp/pal
+    write every field, read_pal_indices memsets its own slice) and are
+    cleared alike, so no user has to know which frame, sliced or not,
+    held an arena last.  The gaps themselves are never written: the
+    frame's used ranges (NativeFrameDecode.used_ranges) are all there
+    is to clear."""
+    for s, e in used:
+        arr[s:e] = 0
     with _POOL_LOCK:
         _ARENA_POOL.setdefault((name, arr.shape), []).append(arr)
+
+
+# the capture arenas: (pool name, NativeFrameDecode attribute, CFrameCtx
+# cursor), in the order of the slice starts a tile-sliced frame keeps
+# per tile (NativeFrameDecode.tile_fctx)
+_ARENAS = (("blocks", "cap_blocks", "n_blocks"),
+           ("coef_meta", "cap_coef_meta", "n_coef_meta"),
+           ("cf", "cf_arena", "cf_used"),
+           ("obmc", "cap_obmc", "n_obmc"),
+           ("warp", "cap_warp", "n_warp"),
+           ("pal", "cap_pal", "n_pal"),
+           ("pal_arena", "pal_arena", "pal_used"))
+_CURSORS = tuple(cur for _, _, cur in _ARENAS)
 
 
 class NativeFrameDecode:
@@ -584,8 +600,8 @@ class NativeFrameDecode:
 
         # capture arenas (exact worst-case bounds), drawn from the
         # process-wide recycling pool: a released frame re-zeroes only
-        # the counter-bounded prefix it actually used, so steady-state
-        # decode does no multi-MB allocation or full-arena zeroing
+        # the ranges it actually used, so steady-state decode does no
+        # multi-MB allocation or full-arena zeroing
         n_cells = f.bw * f.bh
         n_px = 16 * n_cells
         chroma_px = 0 if f.layout == 0 else \
@@ -639,8 +655,9 @@ class NativeFrameDecode:
         clone CFrameCtx per tile with cursors pre-set to its slice start
         and caps to its slice end — recorded indices stay ABSOLUTE, so
         the replay/pipeline consumers read the shared arenas unchanged.
-        Gaps between a tile's used prefix and the next slice are marked
-        invalid in finish_parallel."""
+        The gap between a tile's used prefix and the next slice is
+        never written and stays zero; consumers read only the used
+        ranges (:meth:`used_ranges`)."""
         f = self.f
         self.tile_order = list(tiles)
         chroma = f.layout != 0
@@ -675,8 +692,7 @@ class NativeFrameDecode:
             fc.pal_used = cur["pala"]
             fc.pal_arena_cap = cur["pala"] = cur["pala"] + caps["pala"]
             self.tile_fctx[id(ts)] = \
-                (fc, fc.n_blocks, fc.n_coef_meta, fc.cf_used, fc.n_obmc,
-                 fc.n_warp, fc.n_pal, fc.pal_used)
+                (fc, *(getattr(fc, cur) for cur in _CURSORS))
         assert cur["blocks"] <= len(self.cap_blocks)
         assert cur["coef"] <= len(self.cap_coef_meta)
         assert cur["cf"] <= len(self.cf_arena)
@@ -686,40 +702,34 @@ class NativeFrameDecode:
         assert cur["pala"] <= len(self.pal_arena)
 
     def finish_parallel(self):
-        """Merge per-tile cursors back into the shared ctx (max used —
-        the prefix every consumer and the pool re-zero cover) and mark
-        the coef-meta gap rows invalid (eob -1: excluded by the residual
-        launcher's validity mask)."""
+        """Merge per-tile cursors back into the shared ctx.  Each becomes
+        the end of the furthest used slice: the length of the absolute
+        index space that consumers size their per-row tables by
+        (meta_rows, cap_blocks[:n_blocks]).  Not all of it was used:
+        between one tile's used end and the next tile's slice start lies
+        a gap, never written and zero, which :meth:`used_ranges` leaves
+        out for the residual launcher, the replay walks and release."""
         c = self.c
         err = 0
         for ts in self.tile_order:
             fc = self.tile_fctx[id(ts)][0]
             err |= fc.error
-            c.n_blocks = max(c.n_blocks, fc.n_blocks)
-            c.n_coef_meta = max(c.n_coef_meta, fc.n_coef_meta)
-            c.cf_used = max(c.cf_used, fc.cf_used)
-            c.n_obmc = max(c.n_obmc, fc.n_obmc)
-            c.n_warp = max(c.n_warp, fc.n_warp)
-            c.n_pal = max(c.n_pal, fc.n_pal)
-            c.pal_used = max(c.pal_used, fc.pal_used)
+            for cur in _CURSORS:
+                setattr(c, cur, max(getattr(c, cur), getattr(fc, cur)))
         c.error |= err
-        ends = [self.tile_fctx[id(ts)][1] for ts in self.tile_order[1:]]
-        ends.append(int(c.n_coef_meta))
-        for ts, nxt in zip(self.tile_order, ends):
-            fc = self.tile_fctx[id(ts)][0]
-            if fc.n_coef_meta < nxt:
-                self.cap_coef_meta[fc.n_coef_meta : nxt, 0] = -1
 
-    def block_ranges(self):
-        """Used capture-block ranges in decode order: [(start, end)].
-        Parallel mode returns one per tile (slices leave gaps of zeroed
-        CapBlocks the replay walks must never visit); serial mode is the
-        single dense range."""
+    def used_ranges(self, cursor):
+        """The used [start, end) ranges, in decode order, of the arena
+        whose CFrameCtx cursor is ``cursor`` (``"n_blocks"``,
+        ``"n_coef_meta"``, ``"cf_used"``, ...): one per tile in a
+        tile-sliced frame, whose slices leave zeroed gaps no consumer
+        may take for records; otherwise the single dense prefix."""
         if not self.tile_order:
-            return [(0, int(self.c.n_blocks))]
-        return [(self.tile_fctx[id(ts)][1],
-                 int(self.tile_fctx[id(ts)][0].n_blocks))
-                for ts in self.tile_order]
+            return [(0, int(getattr(self.c, cursor)))]
+        k = 1 + _CURSORS.index(cursor)
+        return [(int(ent[k]), int(getattr(ent[0], cursor)))
+                for ent in (self.tile_fctx[id(ts)]
+                            for ts in self.tile_order)]
 
     def tile_ctx(self, ts):
         ent = self.tiles.get(id(ts))
@@ -882,12 +892,11 @@ class NativeFrameDecode:
         ts_idx = {}
         bounds = []
         if self.parallel:
-            for ts in self.tile_order:
-                fc, start = self.tile_fctx[id(ts)][:2]
-                ti = len(bounds)
+            for ts, (start, end) in zip(self.tile_order,
+                                        self.used_ranges("n_blocks")):
+                tile_of_block[start:end] = len(bounds)
                 bounds.append([ts.col_start, ts.col_end,
                                ts.row_start, ts.row_end])
-                tile_of_block[start : int(fc.n_blocks)] = ti
         else:
             prev = 0
             for end, ts in self.block_tile:
@@ -974,9 +983,9 @@ class NativeFrameDecode:
         count AFTER each sbrow call and its TileState; parallel mode
         resolves through the slice ranges)."""
         if self.parallel:
-            for ts in self.tile_order:
-                fc, start = self.tile_fctx[id(ts)][:2]
-                if start <= i < int(fc.n_blocks):
+            for ts, (start, end) in zip(self.tile_order,
+                                        self.used_ranges("n_blocks")):
+                if start <= i < end:
                     return ts
             raise IndexError(i)
         for end, ts in self.block_tile:
@@ -1106,19 +1115,18 @@ class NativeFrameDecode:
 
     def release(self):
         """Return the capture arenas to the recycling pool (called once
-        the frame's pass 2 + filter chain are complete; only the
-        counter-bounded used prefixes are re-zeroed)."""
-        c = self.c
-        _pool_put("blocks", self.cap_blocks, int(c.n_blocks))
-        _pool_put("coef_meta", self.cap_coef_meta, int(c.n_coef_meta))
-        _pool_put("cf", self.cf_arena, int(c.cf_used))
-        _pool_put("obmc", self.cap_obmc, int(c.n_obmc))
-        _pool_put("warp", self.cap_warp, int(c.n_warp))
-        _pool_put("pal", self.cap_pal, int(c.n_pal))
-        _pool_put("pal_arena", self.pal_arena, int(c.pal_used))
-        self.cap_blocks = self.cap_coef_meta = self.cf_arena = None
-        self.cap_obmc = self.cap_warp = self.cap_pal = None
-        self.pal_arena = None
+        the frame's pass 2 + filter chain are complete).  Only the used
+        ranges are re-zeroed: one per tile in a tile-sliced frame (the
+        gaps between its slices were never written), else the dense
+        prefix; ``devrt.COUNTS["arena.cleared_bytes"]`` counts them."""
+        cleared = 0
+        for name, attr, cur in _ARENAS:
+            arr = getattr(self, attr)
+            used = self.used_ranges(cur)
+            _pool_put(name, arr, used)
+            cleared += arr.strides[0] * sum(e - s for s, e in used)
+            setattr(self, attr, None)
+        devrt.COUNTS["arena.cleared_bytes"] += cleared
 
     def finish_lr_units(self):
         """Restoration units: dense capture grid -> FrameContext dict."""

@@ -104,7 +104,8 @@ def _launch_residuals_native(f):
     goes up once (its used prefix, int32: the arena returns to the pool
     at frame finish, and a copy from pageable memory has read it when
     ``upload`` returns), the job table (one row per meta row with
-    eob >= 0, sorted as the reference groups them) goes up, the itx
+    eob >= 0 in the arena's used ranges, sorted as the reference groups
+    them) goes up, the itx
     kernel runs, and the residuals start coming down; pass 2 collects
     them.  Returns the frame's :class:`_NativeResiduals`."""
     glue = f._nat
@@ -112,7 +113,13 @@ def _launch_residuals_native(f):
     # residuals: int16 at bd <= 10, int32 at 12-bit (12-bit IDTX exceeds
     # int16; dav1d_tpu/ops/itx.py:270-275)
     st = _NativeResiduals(meta.shape[0], 2 if f.bitdepth <= 10 else 4)
-    valid = np.flatnonzero(meta[:, 0] >= 0)
+    # the zero gap rows between a tile-sliced frame's slices are no
+    # transforms
+    used = glue.used_ranges("n_coef_meta")
+    devrt.COUNTS["arena.gap_rows"] += \
+        meta.shape[0] - sum(e - s for s, e in used)
+    valid = np.concatenate([s + np.flatnonzero(meta[s:e, 0] >= 0)
+                            for s, e in used])
     if valid.size == 0:
         return st
     n_cf = int(glue.c.cf_used)
@@ -431,7 +438,7 @@ def run_pass2(f, st) -> None:
     # tier: the residuals are already computed).  Walks are ranged per
     # tile slice: parallel pass 1 leaves zeroed gap rows between slices
     # that must never be visited (serial mode is one range).
-    ranges = glue.block_ranges()
+    ranges = glue.used_ranges("n_blocks")
     handled_ptr = mc_st.handled.ctypes.data if mc_st is not None else None
     skipped = np.empty(n, dtype=np.int64)
     ns = 0

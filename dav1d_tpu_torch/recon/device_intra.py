@@ -462,7 +462,7 @@ def intra_frame_device(f, st) -> bool:
     ``.download`` (which waits for the walks)."""
     glue = f._nat
     with devrt.span("pass2.intra.schedule"):
-        sched, _ = _enumerate_units(f, glue, glue.block_ranges())
+        sched, _ = _enumerate_units(f, glue, glue.used_ranges("n_blocks"))
     if sched is None:
         return False
     if not any(sched):

@@ -251,45 +251,69 @@ def test_port_matches_jax_tiers(name):
         assert counts.get("mc_blocks", 0) == 0, counts
 
 
-# what each committed stream's decode counts (devrt.COUNTS)
+# what each committed stream's decode counts (devrt.COUNTS); each also
+# counts the capture-arena bytes its frames' release re-zeroed and, with
+# no tile threads, no gap rows between tile slices
 COMMITTED = {
     # 164 transform blocks with coefficients; two inter frames: 12 inter
     # blocks, 11 of them plain translational single-reference blocks the
     # MC stage predicts
     "hbd10_128x96.ivf": {"itx_blocks": 164, "inter_blocks": 12,
-                         "mc_blocks": 11},
+                         "mc_blocks": 11,
+                         "arena.gap_rows": 0,
+                         "arena.cleared_bytes": 174500},
     "inter_1080p_8bit.ivf": {"itx_blocks": 25444, "inter_blocks": 3489,
-                             "mc_blocks": 3324},
+                             "mc_blocks": 3324,
+                             "arena.gap_rows": 0,
+                             "arena.cleared_bytes": 32153048},
     # Wiener on every plane of every frame (106 + 181 + 204 + 151 stripe
     # units); every reference scaled, so no MC block on the device
     "superres_lr_1080p_8bit.ivf": {"itx_blocks": 15819,
                                    "inter_blocks": 2416,
                                    "lr_wiener_units": 642,
-                                   "lr_sgr_units": 0},
+                                   "lr_sgr_units": 0,
+                                   "arena.gap_rows": 0,
+                                   "arena.cleared_bytes": 15280768},
     # 168 + 16 + 55 + 104 stripe units; the 16 of the key frame's V plane
     # self-guided (the mixed variant)
     "lr_1080p_8bit.ivf": {"itx_blocks": 23361, "inter_blocks": 2491,
                           "mc_blocks": 2337, "lr_wiener_units": 327,
-                          "lr_sgr_units": 16},
+                          "lr_sgr_units": 16,
+                          "arena.gap_rows": 0,
+                          "arena.cleared_bytes": 27736020},
     # film grain on every frame (plain grain on the CPU)
     "grain_1080p_8bit.ivf": {"itx_blocks": 25418, "inter_blocks": 3466,
-                             "mc_blocks": 3282},
+                             "mc_blocks": 3282,
+                             "arena.gap_rows": 0,
+                             "arena.cleared_bytes": 32209636},
     "grain_hbd10_352x288.ivf": {"itx_blocks": 517, "inter_blocks": 87,
-                                "mc_blocks": 80},
+                                "mc_blocks": 80,
+                                "arena.gap_rows": 0,
+                                "arena.cleared_bytes": 775160},
     # two key frames, palette coded
-    "screen_1080p_8bit.ivf": {"itx_blocks": 196, "inter_blocks": 0},
+    "screen_1080p_8bit.ivf": {"itx_blocks": 196, "inter_blocks": 0,
+                              "arena.gap_rows": 0,
+                              "arena.cleared_bytes": 5188528},
     # the other layouts at 256x192, 1 key + 3 inter frames, restoration on
     "i422_8bit_256x192.ivf": {"itx_blocks": 1030, "inter_blocks": 143,
                               "mc_blocks": 130, "lr_wiener_units": 10,
-                              "lr_sgr_units": 0},
+                              "lr_sgr_units": 0,
+                              "arena.gap_rows": 0,
+                              "arena.cleared_bytes": 1279272},
     "i444_10bit_256x192.ivf": {"itx_blocks": 598, "inter_blocks": 92,
                                "mc_blocks": 84, "lr_wiener_units": 2,
-                               "lr_sgr_units": 0},
+                               "lr_sgr_units": 0,
+                               "arena.gap_rows": 0,
+                               "arena.cleared_bytes": 1926028},
     "i420_12bit_256x192.ivf": {"itx_blocks": 166, "inter_blocks": 36,
-                               "mc_blocks": 35},
+                               "mc_blocks": 35,
+                               "arena.gap_rows": 0,
+                               "arena.cleared_bytes": 459712},
     "mono_8bit_256x192.ivf": {"itx_blocks": 498, "inter_blocks": 160,
                               "mc_blocks": 135, "lr_wiener_units": 6,
-                              "lr_sgr_units": 0},
+                              "lr_sgr_units": 0,
+                              "arena.gap_rows": 0,
+                              "arena.cleared_bytes": 548064},
 }
 
 
