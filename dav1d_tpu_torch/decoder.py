@@ -695,13 +695,15 @@ class Decoder:
             return pic
         from .recon.filmgrain import apply_grain
         from .bufpool import take as _take
-        copies = []
-        for p in pic.planes:
-            c = _take(p.shape, p.dtype)
-            c[:] = p
-            copies.append(c)
-        pic.planes = copies
         with devrt.frame(pic.frame_id), devrt.span("grain"):
+            with devrt.span("grain.copy"):
+                copies = []
+                for p in pic.planes:
+                    c = _take(p.shape, p.dtype)
+                    c[:] = p
+                    copies.append(c)
+            devrt.COUNTS["grain.copy_bytes"] += sum(c.nbytes for c in copies)
+            pic.planes = copies
             apply_grain(pic, self.device, dev_planes)
         return pic
 

@@ -55,7 +55,14 @@ kernel launch through :func:`launch`, every upload through
   shares that launched it: ``mesh_deblock_v_bands``,
   ``mesh_deblock_h_bands``, ``mesh_cdef_dir_bands``,
   ``mesh_cdef_bands``, ``mesh_itx_shares``, ``mesh_lr_wiener_shares``,
-  ``mesh_lr_sgr_shares``.
+  ``mesh_lr_sgr_shares``; with film grain at output
+  (decoder.Decoder._maybe_apply_grain, recon/filmgrain.apply_grain),
+  ``grain.pictures`` and ``grain.planes`` (pictures and planes grained),
+  ``grain.resident`` (pictures whose planes the kernel read resident,
+  with no upload), ``grain.up_bytes`` (the tables and any planes
+  uploaded), ``grain.down_bytes`` (the grained planes fetched) and
+  ``grain.copy_bytes`` (the pooled copies of the picture's planes that
+  the grained planes replace).
 
 ``XFER["mesh"]`` counts the bytes a mesh (mesh.Mesh.gather) moved
 between devices or ranks.

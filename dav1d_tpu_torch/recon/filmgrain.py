@@ -164,21 +164,30 @@ def apply_grain(pic, device, dev_planes=None) -> None:
     ``pic.planes`` (which must be the picture's own writable copies), and
     the resident planes, the frame's reference pixels, stay grain-free.
     The tables go up in one copy; every transfer is counted in
-    devrt.XFER."""
-    _, planes = grain_tables(pic)
-    if not planes:
-        return
-    prm = plane_params(pic)
-    ss_x, ss_y, _ = _geometry(pic)
-    w, h = pic.width, pic.height
-    n_rows = -(-h // ofg.FG_BLOCK)
-    n_blocks = -(-w // ofg.FG_BLOCK)
-    data = pic.frame_hdr.film_grain.data
-    offs = ofg.row_offsets(data.seed, data.overlap_flag, n_rows, n_blocks)
-    order = sorted(planes)
-    host = np.concatenate([offs.ravel()] + [
-        np.concatenate([planes[pl][0].ravel(), planes[pl][1]])
-        for pl in order])
+    devrt.XFER, and the grain stage's work in devrt.COUNTS:
+    ``grain.pictures``, ``grain.planes``, ``grain.resident`` (pictures
+    read from ``dev_planes``, with no plane upload), ``grain.up_bytes``
+    (the tables and any planes) and ``grain.down_bytes``."""
+    with devrt.span("grain.tables"):
+        _, planes = grain_tables(pic)
+        if not planes:
+            return
+        prm = plane_params(pic)
+        ss_x, ss_y, _ = _geometry(pic)
+        w, h = pic.width, pic.height
+        n_rows = -(-h // ofg.FG_BLOCK)
+        n_blocks = -(-w // ofg.FG_BLOCK)
+        data = pic.frame_hdr.film_grain.data
+        offs = ofg.row_offsets(data.seed, data.overlap_flag, n_rows,
+                               n_blocks)
+        order = sorted(planes)
+        host = np.concatenate([offs.ravel()] + [
+            np.concatenate([planes[pl][0].ravel(), planes[pl][1]])
+            for pl in order])
+    counts = devrt.COUNTS
+    counts["grain.pictures"] += 1
+    counts["grain.planes"] += len(order)
+    up = host.nbytes
     with devrt.span("grain.upload"):
         t = devrt.upload(host, device)
         if dev_planes is None:
@@ -186,6 +195,11 @@ def apply_grain(pic, device, dev_planes=None) -> None:
             need = sorted(set(order) | {0})
             dev_planes = dict(zip(need, state.upload_planes(
                 [pic.planes[pl] for pl in need], pic.bitdepth, device)))
+            up += sum(pic.planes[pl].size for pl in need) * (
+                1 if pic.bitdepth == 8 else 2)
+        else:
+            counts["grain.resident"] += 1
+    counts["grain.up_bytes"] += up
     dtab = t[offs.size:]
     offs_t = t[:offs.size].view(offs.shape)
     nlut, nsc = ofg.LUT_ROWS * ofg.GRAIN_W, 1 << pic.bitdepth
@@ -202,4 +216,6 @@ def apply_grain(pic, device, dev_planes=None) -> None:
                 sc, offs_t, (w + sx) >> sx, (h + sy) >> sy, w, prm[pl])
     with devrt.span("grain.download"):
         for pl, o in outs.items():
-            pic.planes[pl][...] = devrt.fetch(cast(o))
+            down = devrt.fetch(cast(o))
+            pic.planes[pl][...] = down
+            counts["grain.down_bytes"] += down.nbytes

@@ -14,6 +14,7 @@ mask views).
 from __future__ import annotations
 
 import functools
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +30,11 @@ def _z():
 
 
 _cache: dict = {}
+# one zip handle serves every member: reads from threads at once (pass 1's
+# tile threads on a process's first frame) overlap on its file position
+# and fail (zipfile.BadZipFile), so the first read of each member holds
+# the lock; a member already read is returned without it
+_LOCK = threading.Lock()
 
 
 def _get(name: str) -> np.ndarray:
@@ -36,7 +42,10 @@ def _get(name: str) -> np.ndarray:
     # so cache materialized arrays
     arr = _cache.get(name)
     if arr is None:
-        arr = _cache[name] = _z()[name]
+        with _LOCK:
+            arr = _cache.get(name)
+            if arr is None:
+                arr = _cache[name] = _z()[name]
     return arr
 
 

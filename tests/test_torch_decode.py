@@ -281,15 +281,28 @@ COMMITTED = {
                           "lr_sgr_units": 16,
                           "arena.gap_rows": 0,
                           "arena.cleared_bytes": 27736020},
-    # film grain on every frame (plain grain on the CPU)
+    # film grain on every frame (plain grain on the CPU): every plane of
+    # every picture grained from its resident planes; the pooled copies
+    # of the int32 host planes, the narrow planes fetched (1 byte a pixel
+    # at 8-bit, 2 above) and the grain tables uploaded
     "grain_1080p_8bit.ivf": {"itx_blocks": 25418, "inter_blocks": 3466,
                              "mc_blocks": 3282,
                              "arena.gap_rows": 0,
-                             "arena.cleared_bytes": 32209636},
+                             "arena.cleared_bytes": 32209636,
+                             "grain.pictures": 4, "grain.planes": 12,
+                             "grain.resident": 4,
+                             "grain.copy_bytes": 4 * 3110400 * 4,
+                             "grain.down_bytes": 4 * 3110400,
+                             "grain.up_bytes": 368832},
     "grain_hbd10_352x288.ivf": {"itx_blocks": 517, "inter_blocks": 87,
                                 "mc_blocks": 80,
                                 "arena.gap_rows": 0,
-                                "arena.cleared_bytes": 775160},
+                                "arena.cleared_bytes": 775160,
+                                "grain.pictures": 3, "grain.planes": 9,
+                                "grain.resident": 3,
+                                "grain.copy_bytes": 3 * 152064 * 4,
+                                "grain.down_bytes": 3 * 152064 * 2,
+                                "grain.up_bytes": 257688},
     # two key frames, palette coded
     "screen_1080p_8bit.ivf": {"itx_blocks": 196, "inter_blocks": 0,
                               "arena.gap_rows": 0,

@@ -31,9 +31,11 @@ NEW_SPANS = ("api.send", "api.get", "api.open", "api.close", "api.client",
              "frames.busy", "pass2.cpu", "chain.cpu")
 
 
-def _decode(name=STREAM, device="cpu"):
+def _decode(name=STREAM, device="cpu", seen=None, **settings):
     """(pictures, md5 of every plane, wall seconds, n_fc) of one decode
-    with the benchmark's settings and ``N_THREADS``, opened and closed."""
+    with the benchmark's settings and ``N_THREADS`` (and ``settings``
+    over them), opened and closed; each picture returned is appended to
+    ``seen`` where it is a list."""
     from dav1d_tpu_torch.containers import open_stream
     from dav1d_tpu_torch.decoder import Decoder, Settings
 
@@ -41,14 +43,17 @@ def _decode(name=STREAM, device="cpu"):
     torch.set_num_threads(1)  # the suite's workers share the cores
     try:
         t0 = time.perf_counter()
-        dec = Decoder(Settings(two_pass=True, n_threads=N_THREADS,
-                               max_frame_delay=4), device=device)
+        dec = Decoder(Settings(**{"two_pass": True, "n_threads": N_THREADS,
+                                  "max_frame_delay": 4, **settings}),
+                      device=device)
         md5, n = hashlib.md5(), 0
 
         def take():
             nonlocal n
             while (pic := dec.get_picture()) is not None:
                 n += 1
+                if seen is not None:
+                    seen.append(pic)
                 for pl in range(len(pic.planes)):
                     md5.update(pic.plane_buffer(pl))
 
@@ -124,6 +129,95 @@ def test_nothing_recorded_with_tracing_off():
     assert (n, md5) == (_want()["frames"], _want()["md5"])
     assert devrt.SPANS is None and devrt.XFER is None
     assert devrt.RANGE_LOG == [] and devrt._busy[0] == 0
+
+
+GRAIN_SPANS = ("grain.copy", "grain.tables", "grain.upload", "grain.apply",
+               "grain.download")
+
+
+def _grain_counts(**settings):
+    """(grain counts of ``devrt.COUNTS`` added by one traced decode of
+    the stream, its spans, its pictures)."""
+    import collections
+
+    from dav1d_tpu_torch import devrt
+
+    before = collections.Counter(devrt.COUNTS)
+    pics = []
+    devrt.SPANS, devrt.XFER = {}, {"up": 0, "down": 0}
+    try:
+        _decode(seen=pics, **settings)
+        spans = dict(devrt.SPANS)
+    finally:
+        devrt.SPANS = devrt.XFER = None
+    counts = {k: v - before[k] for k, v in devrt.COUNTS.items()
+              if k.startswith("grain.")}
+    return counts, spans, pics
+
+
+def _grain_work(pic):
+    """(planes grained, bytes of the grain tables uploaded, bytes of the
+    planes uploaded where they are not resident, bytes fetched) of one
+    picture."""
+    from dav1d_tpu_torch.ops import fg as ofg
+
+    d = pic.frame_hdr.film_grain.data
+    on = [d.num_y_points > 0] + [
+        bool(d.num_uv_points[uv] or d.chroma_scaling_from_luma)
+        for uv in range(len(pic.planes) - 1)]
+    narrow = 1 if pic.bitdepth == 8 else 2  # the bytes a pixel moves
+    blocks = -(-pic.width // ofg.FG_BLOCK) * -(-pic.height // ofg.FG_BLOCK)
+    tables = 4 * (2 * blocks + sum(on) * (ofg.LUT_ROWS * ofg.GRAIN_W
+                                          + (1 << pic.bitdepth)))
+    # luma goes up with any plane: chroma reads it for its index
+    planes = sum(p.size * narrow for pl, p in enumerate(pic.planes)
+                 if on[pl] or pl == 0)
+    down = sum(p.size * narrow for p, g in zip(pic.planes, on) if g)
+    return sum(on), tables, planes, down
+
+
+def test_grain_counts_match_the_pictures():
+    """Every picture of the stream is grained: the grain stage counts
+    each picture, its planes, the pooled copies, the grained planes
+    fetched, and the tables (and the planes where they were not
+    resident) uploaded; its span holds its parts.  A picture grained
+    again from its host planes counts their upload."""
+    import collections
+
+    from dav1d_tpu_torch import devrt
+    from dav1d_tpu_torch.recon import filmgrain
+
+    counts, spans, pics = _grain_counts()
+    assert len(pics) == _want()["frames"]
+    work = [_grain_work(p) for p in pics]
+    resident = counts.get("grain.resident", 0)
+    assert counts["grain.pictures"] == len(pics)
+    assert counts["grain.planes"] == sum(w[0] for w in work)
+    assert counts["grain.copy_bytes"] == sum(
+        p.nbytes for pic in pics for p in pic.planes)
+    assert counts["grain.down_bytes"] == sum(w[3] for w in work)
+    assert 0 <= resident <= len(pics)
+    planes = {w[2] for w in work}  # one geometry: the same planes each
+    assert len(planes) == 1
+    assert counts["grain.up_bytes"] == sum(w[1] for w in work) + (
+        len(pics) - resident) * planes.pop()
+    assert spans["grain"] >= sum(spans[t] for t in GRAIN_SPANS)
+    assert spans["grain"] <= spans["api.get"]
+
+    before = collections.Counter(devrt.COUNTS)
+    filmgrain.apply_grain(pics[0], torch.device("cpu"))
+    added = collections.Counter(devrt.COUNTS) - before
+    n, tables, planes, down = work[0]
+    assert added == {"grain.pictures": 1, "grain.planes": n,
+                     "grain.up_bytes": tables + planes,
+                     "grain.down_bytes": down}
+
+
+def test_no_grain_counted_without_grain():
+    counts, spans, pics = _grain_counts(apply_grain=False)
+    assert len(pics) == _want()["frames"]
+    assert all(v == 0 for v in counts.values()), counts
+    assert not any(t == "grain" or t.startswith("grain.") for t in spans)
 
 
 def test_threads_add_without_loss():
