@@ -29,7 +29,6 @@ unless DAV1D_TPU_DEVICE_IPRED=1).
 
 from __future__ import annotations
 
-import concurrent.futures
 import dataclasses
 import functools
 import io
@@ -80,11 +79,12 @@ class Settings:
     thread entropy-decodes the next frames — the reference's
     frame-threading overlap (src/lib.c:109-126) with real thread
     parallelism on multi-core hosts (the native C passes release the
-    GIL).  Frames are handed to the pool in decode order and each
-    starts its pass 2 once the reference slots it reads are ready, so
-    frames that do not depend on each other reconstruct at once.
-    Output order and bit-exactness are unchanged: pictures leave in
-    submission order."""
+    GIL).  Each frame is handed to the pool, in decode order, as soon
+    as its pass 1 ends, and starts its pass 2 once the reference slots
+    it reads are ready, so frames that do not depend on each other
+    reconstruct at once.  A shown existing frame waits in output order
+    behind the frames in flight, with no drain.  Output order and
+    bit-exactness are unchanged: pictures leave in submission order."""
 
     n_threads: int = 0
     max_frame_delay: int = 0
@@ -202,6 +202,47 @@ class _TileGroup:
     tile_end: int
 
 
+def _existing_picture(slot: _RefSlot) -> Picture:
+    """The picture of a shown existing frame: the slot's planes, cropped
+    (ObuError where the slot has none: its frame failed, or was never
+    reconstructed)."""
+    if slot.planes is None:
+        raise obu_mod.ObuError("show_existing_frame without picture")
+    w = slot.frame_hdr.width[1]
+    h = slot.frame_hdr.height
+    layout = slot.seq_hdr.layout
+    planes = [slot.planes[0][:h, :w]]
+    if layout != PixelLayout.I400:
+        ss_hor = int(layout != PixelLayout.I444)
+        ss_ver = int(layout == PixelLayout.I420)
+        cw = (w + ss_hor) >> ss_hor
+        ch = (h + ss_ver) >> ss_ver
+        planes += [p[:ch, :cw] for p in slot.planes[1:]]
+    return Picture(
+        planes=planes, width=w, height=h,
+        layout=layout, bitdepth=slot.seq_hdr.bitdepth,
+        seq_hdr=slot.seq_hdr, frame_hdr=slot.frame_hdr,
+        dev_planes=slot.dev_planes, frame_id=slot.frame_id)
+
+
+class _Shown:
+    """A shown existing frame's output entry, queued behind the frames in
+    flight: done once its slot is ready.  It is resolved on the caller's
+    thread (``result``), never run on a frame worker."""
+
+    __slots__ = ("slot",)
+
+    def __init__(self, slot: _RefSlot):
+        self.slot = slot
+
+    def done(self) -> bool:
+        return self.slot.ready.is_set()
+
+    def result(self) -> Picture:
+        self.slot.ready.wait()
+        return _existing_picture(self.slot)
+
+
 class Decoder:
     """Single-threaded decode pipeline (frame threading and the device
     batch pipeline layer on top of this state machine)."""
@@ -243,22 +284,26 @@ class Decoder:
         self.content_light = None
         self.mastering_display = None
         self.itut_t35: list = []
-        # frames submitted (pass 1 done, device residual batches in
-        # flight) but not yet finished (pass 2 + filters) — the frame
-        # pipeline (reference frame threading, src/lib.c:109-126 /
-        # src/thread_task.c); bounded by Settings.max_frame_delay
+        # without a worker pool: frames submitted (pass 1 done, device
+        # residual batches in flight) but not yet finished (pass 2 +
+        # filters) — the frame pipeline (reference frame threading,
+        # src/lib.c:109-126 / src/thread_task.c); bounded by
+        # Settings.max_frame_delay
         self._pending: list = []
         # n_threads >= 2: reconstruction workers.  Pool size follows the
         # reference's frame-context count n_fc = ceil(sqrt(n_threads)),
-        # capped at 8 (src/lib.c:109-126).  Frames are SUBMITTED in
-        # decode order but execute concurrently, each gated only on the
-        # readiness of the ref slots it actually reads (_RefSlot.ready)
-        # — the frame-granular form of the reference's lowest_pixel/
-        # progress protocol (src/thread_task.c:393-439).  Outputs drain
-        # via the in-order futures queue, so emission order and bytes
-        # are unchanged at any thread count.
+        # capped at 8 (src/lib.c:109-126).  A frame goes to the pool as
+        # soon as its pass 1 ends; frames execute concurrently, each
+        # gated only on the readiness of the ref slots it actually reads
+        # (_RefSlot.ready) — the frame-granular form of the reference's
+        # lowest_pixel/progress protocol (src/thread_task.c:393-439).
+        # Output leaves through ``_entries``, one ordered list of the
+        # frames' futures and the shown existing frames queued behind
+        # them (_Shown), bounded by the frame delay — the reference's
+        # frame-thread output ring (c->frame_thread.out_delayed) — so
+        # emission order and bytes are unchanged at any thread count.
         self._worker = None
-        self._futures: list = []
+        self._entries: list = []
         if self.settings.n_threads >= 2:
             import math
             from concurrent.futures import ThreadPoolExecutor
@@ -535,7 +580,19 @@ class Decoder:
         # next frame after the metadata OBU, reference src/obu.c:1500-1515)
         meta = (self.content_light, self.mastering_display, self.itut_t35)
         self.itut_t35 = []
-        self._pending.append((f, hdr, meta, slots))
+        if self._worker is not None:
+            # to the pool as soon as pass 1 ends: its pass 2 and chain
+            # run beside the caller's next pass 1
+            self._entries.append(self._worker.submit(
+                self._finish_task, f, hdr, meta, slots))
+        else:
+            self._pending.append((f, hdr, meta, slots))
+        self._hold_to_delay()
+
+    def _hold_to_delay(self) -> None:
+        """Back-pressure: while more than the frame delay are in flight,
+        finish the oldest frame (no worker pool) or wait for the oldest
+        output entry."""
         delay = self.settings.max_frame_delay
         if delay <= 0:
             # auto: one frame in flight when the two-pass pipeline can
@@ -544,25 +601,23 @@ class Decoder:
             # busy (reference get_frame_delay, src/lib.c:118-126)
             delay = 2 if self._two_pass else 1
             delay = max(delay, self.n_fc + 1)
-        self._collect_futures(wait=False)
-        while len(self._pending) + len(self._futures) > delay:
-            if self._pending:
-                self._finish_one()
-            else:
-                self._collect_futures(wait=True, one=True)
+        self._collect_entries(wait=False)
+        while len(self._pending) + len(self._entries) > delay:
+            self._retire_one()
+
+    def _retire_one(self) -> None:
+        """Finish the oldest pending frame on this thread (no worker
+        pool), else wait for the oldest output entry."""
+        if self._pending:
+            self._finish_one()
+        else:
+            self._collect_entries(wait=True, one=True)
 
     def _finish_one(self) -> None:
-        """Pass 2 + filter chain for the oldest in-flight frame; fills its
-        ref-slot planes and emits its output picture.  With the
-        reconstruction worker active this only *submits* — the worker
-        runs frames strictly in order (slot.planes of frame N are bound
-        on the worker before frame N+1's pass 2 reads them there)."""
-        item = self._pending.pop(0)
-        if self._worker is not None:
-            self._futures.append(self._worker.submit(self._finish_task,
-                                                     *item))
-            return
-        pic = self._finish_task(*item)
+        """Pass 2 + filter chain for the oldest pending frame, on the
+        caller's thread (no worker pool); fills its ref-slot planes and
+        emits its output picture."""
+        pic = self._finish_task(*self._pending.pop(0))
         if pic is not None:
             self.out_queue.append(pic)
 
@@ -610,46 +665,47 @@ class Decoder:
             return pic
         return None
 
-    def _collect_futures(self, wait: bool, one: bool = False) -> None:
-        """Move finished worker frames (in order) into the out queue."""
-        while self._futures and (wait or self._futures[0].done()):
-            fut = self._futures.pop(0)
-            if not fut.done():
-                with devrt.span("wait.frames"):  # the caller blocks
-                    concurrent.futures.wait([fut])
-            pic = fut.result()
+    def _collect_entries(self, wait: bool, one: bool = False) -> None:
+        """Move finished output entries (in order) into the out queue; an
+        entry's error raises here, once the entry is off the list."""
+        while self._entries and (wait or self._entries[0].done()):
+            entry = self._entries.pop(0)
+            # the caller blocks till the entry is done: microseconds
+            # where it already is, so a window without a real wait
+            # still records the span
+            with devrt.span("wait.frames"):
+                pic = entry.result()
             if pic is not None:
                 self.out_queue.append(pic)
             if one:
                 return
 
     def _drain_pending(self) -> None:
+        """Finish every frame in flight (a drain, counted as
+        ``frames.drains`` where any was)."""
+        if self._pending or self._entries:
+            devrt.COUNTS["frames.drains"] += 1
         while self._pending:
             self._finish_one()
-        self._collect_futures(wait=True)
+        self._collect_entries(wait=True)
 
     def _show_existing(self) -> None:
-        self._drain_pending()  # the shown slot's planes may be in flight
         hdr = self.frame_hdr
+        if self._worker is None:
+            self._drain_pending()  # the shown slot's planes may be pending
         slot = self.refs[hdr.existing_frame_idx]
-        if slot.frame_hdr is None or slot.planes is None:
+        # readiness before planes: a slot that is ready has its final
+        # planes, or none it will ever get
+        ready = slot.ready.is_set()
+        if slot.frame_hdr is None or (ready and slot.planes is None):
             raise obu_mod.ObuError("show_existing_frame without picture")
-        w = slot.frame_hdr.width[1]
-        h = slot.frame_hdr.height
-        layout = slot.seq_hdr.layout
-        planes = [slot.planes[0][:h, :w]]
-        if layout != PixelLayout.I400:
-            ss_hor = int(layout != PixelLayout.I444)
-            ss_ver = int(layout == PixelLayout.I420)
-            cw = (w + ss_hor) >> ss_hor
-            ch = (h + ss_ver) >> ss_ver
-            planes += [p[:ch, :cw] for p in slot.planes[1:]]
-        pic = Picture(
-            planes=planes, width=w, height=h,
-            layout=layout, bitdepth=slot.seq_hdr.bitdepth,
-            seq_hdr=slot.seq_hdr, frame_hdr=slot.frame_hdr,
-            dev_planes=slot.dev_planes, frame_id=slot.frame_id)
-        self.out_queue.append(pic)
+        if self._entries:
+            # behind the frames in flight, in output order, with no wait
+            # (the reference's out_delayed ring, src/obu.c:1529-1639)
+            self._entries.append(_Shown(slot))
+            devrt.COUNTS["frames.existing_queued"] += 1
+        else:
+            self.out_queue.append(_existing_picture(slot))
         if slot.frame_hdr.frame_type == FrameType.KEY:
             # key-frame ref propagation (reference src/obu.c:1620-1639)
             slot.showable = False
@@ -657,6 +713,7 @@ class Decoder:
                 if i == hdr.existing_frame_idx:
                     continue
                 self.refs[i] = slot
+        self._hold_to_delay()  # a shown entry counts toward the delay
 
     def _make_picture(self, f: FrameContext) -> Picture:
         hdr = f.frame_hdr
@@ -709,19 +766,9 @@ class Decoder:
 
     @_api_call("api.get")
     def get_picture(self) -> Optional[Picture]:
-        self._collect_futures(wait=False)
-        while not self.out_queue and (self._pending or self._futures):
-            if self._worker is not None:
-                # keep the n_fc pool fed: submit every deferred frame
-                # (each gates itself on its refs' readiness) BEFORE
-                # blocking on the oldest — one-at-a-time submission
-                # would serialize independent frames
-                while self._pending:
-                    self._finish_one()
-                self._collect_futures(wait=True, one=True)
-            else:
-                self._finish_one()
-                self._collect_futures(wait=not self._pending, one=True)
+        self._collect_entries(wait=False)
+        while not self.out_queue and (self._pending or self._entries):
+            self._retire_one()
         if self.out_queue:
             return self._maybe_apply_grain(self.out_queue.pop(0))
         return None
@@ -734,12 +781,12 @@ class Decoder:
         # let in-flight worker frames complete (they mutate ref slots);
         # discard their output and swallow their errors — the caller is
         # abandoning this decode position anyway
-        for fut in self._futures:
+        for entry in self._entries:
             try:
-                fut.result()
+                entry.result()
             except Exception:
                 pass
-        self._futures.clear()
+        self._entries.clear()
         self.out_queue.clear()
         self.frame_hdr = None
         self.tile_groups = []
@@ -759,7 +806,7 @@ class Decoder:
         Uses pickle: the payload is decoder-internal state exchanged
         between trusted workers of one deployment, not a container
         format; import only states you produced."""
-        self._collect_futures(wait=True)
+        self._collect_entries(wait=True)
         if self._pending or self.tile_groups:
             raise RuntimeError("export_state with frames in flight")
         slots = []

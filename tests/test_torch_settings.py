@@ -18,7 +18,8 @@ Streams: the committed ``hbd10_128x96.ivf`` (10-bit) and
 (loop restoration units, which the inloop_filters mask's bit 4 turns
 off), a 128x96 8-bit libaom stream with key frames at 0 and 4
 (tests/test_api.py:_stream), the same content coded with a 16-frame
-lag (hidden alt-ref frames, for output_invisible_frames), and the
+lag (hidden alt-ref frames and shown existing ones, for
+output_invisible_frames and the thread settings), and the
 2-spatial-layer avgen SVC stream of tests/test_svc.py:20.
 
 Settings covered: inloop_filters 0-7 with two-pass on and off;
@@ -225,7 +226,7 @@ def test_frame_size_limit(streams):
 
 @pytest.mark.parametrize("n_threads", [0, 4])
 @pytest.mark.parametrize("delay", [0, 4])
-@pytest.mark.parametrize("name", ["seek8", "hbd10_128x96.ivf"])
+@pytest.mark.parametrize("name", ["seek8", "hbd10_128x96.ivf", "hidden8"])
 def test_frame_delay_and_threads(streams, name, delay, n_threads):
     for two_pass in (False, True):
         _same(dict(max_frame_delay=delay, n_threads=n_threads,
