@@ -20,13 +20,10 @@ reference implements with atomics, expressed with CPython refcounts.
 """
 
 import ctypes
-import os
 import sys
 import threading
 
 import numpy as np
-
-_DISABLED = os.environ.get("DAV1D_TPU_POOL") == "0"
 
 # registry cap per size bucket: 8 ref slots + output queue + frames in
 # flight; beyond this the oldest sole-owned buffers are dropped to GC
@@ -77,7 +74,7 @@ class BufPool:
         for s in shape:
             n *= int(s)
         nbytes = n * dtype.itemsize
-        if _DISABLED or nbytes < (1 << 20):
+        if nbytes < (1 << 20):
             # small buffers: fresh-page cost is trivial and pooling
             # them only bloats buckets and scan time — plain numpy
             if fill is None:

@@ -17,7 +17,7 @@ import numpy as np
 
 from .. import tables
 from ..cdf import CdfContext
-from ..headers import FrameHeader, PixelLayout, SequenceHeader, TxfmMode
+from ..headers import FrameHeader, PixelLayout, SequenceHeader
 from ..intra_edge import INTRA_EDGE_TREE
 from ..levels import BlockLevel
 from ..recon.lf import calc_eih, calc_lf_values
@@ -481,7 +481,6 @@ def _read_lr_for_sb(t: TaskContext) -> None:
 
 
 def _read_restoration_info(t, lr, p, frame_type) -> None:
-    from ..debug import trace
     from ..headers import RestorationType as RT
     ts = t.ts
     msac = ts.msac
@@ -507,8 +506,6 @@ def _read_restoration_info(t, lr, p, frame_type) -> None:
             msac.decode_subexp(ref["filter_h"][2] + 17, 64, 3) - 17]
         lr["sgr_weights"] = list(ref["sgr_weights"])
         ts.lr_ref[p] = lr
-        trace("Post-lr_wiener[pl=%d,v[%d,%d,%d],h[%d,%d,%d]]: r=%d",
-              p, *lr["filter_v"], *lr["filter_h"], msac.rng)
     elif lr["type"] == RT.SGRPROJ:
         idx = msac.decode_bools(4)
         sgr_params = tables.sgr_params[idx]
@@ -521,8 +518,6 @@ def _read_restoration_info(t, lr, p, frame_type) -> None:
         lr["filter_v"] = list(ref["filter_v"])
         lr["filter_h"] = list(ref["filter_h"])
         ts.lr_ref[p] = lr
-        trace("Post-lr_sgrproj[pl=%d,idx=%d,w[%d,%d]]: r=%d",
-              p, idx, lr["sgr_weights"][0], lr["sgr_weights"][1], msac.rng)
 
 
 def _backup_ipred_edge(t: TaskContext) -> None:
@@ -544,17 +539,6 @@ def _backup_ipred_edge(t: TaskContext) -> None:
                                  ts.col_end * 4 >> ss_hor] = \
                     f.planes[pl][uv_row, x_off * 4 >> ss_hor :
                                  ts.col_end * 4 >> ss_hor]
-
-
-def decode_frame(f: FrameContext, tile_groups, two_pass: bool = False) \
-        -> None:
-    """Frame decode (reference dav1d_decode_frame_main). two_pass splits
-    entropy (pass 1, task capture) from reconstruction (pass 2: batched
-    device stages + sequential replay) — the reference's frame-threading
-    architecture (src/internal.h:276-293), re-expressed for a host/TPU
-    split."""
-    decode_frame_pass1(f, tile_groups, two_pass)
-    decode_frame_finish(f)
 
 
 def decode_frame_pass1(f: FrameContext, tile_groups,
@@ -584,10 +568,9 @@ def decode_frame_pass1(f: FrameContext, tile_groups,
     nat = None
     par_cols = 0
     if two_pass:
-        from .. import debug
         from ..msac import MsacNative
         from ..native import decode_glue
-        if not (decode_glue.available() and not debug.TRACE
+        if not (decode_glue.available()
                 and isinstance(f.ts[0].msac, MsacNative)):
             raise RuntimeError("two-pass decode needs the native pass-1 "
                                "decoder (dav1d_tpu_torch.native)")

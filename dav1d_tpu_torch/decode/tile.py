@@ -10,18 +10,15 @@ from __future__ import annotations
 import numpy as np
 
 from .. import tables
-from ..cdf import CdfContext
-from ..headers import FrameType, PixelLayout, PRIMARY_REF_NONE, TxfmMode
+from ..headers import PixelLayout, TxfmMode
 from ..intra_edge import (
     EDGE_ALL_LEFT_HAS_BOTTOM, EDGE_ALL_TOP_HAS_RIGHT, EDGE_ALL_TR_AND_BL,
-    INTRA_EDGE_TREE,
 )
 from ..levels import (
     BlockLevel, BlockPartition as BP, BlockSize, IntraPredMode as M,
-    TxfmSize, CFL_ALLOWED_MASK, N_PARTITIONS,
+    TxfmSize, CFL_ALLOWED_MASK,
 )
-from ..msac import Msac, make_msac
-from ..debug import trace
+from ..msac import make_msac
 
 
 class Av1Block:
@@ -263,8 +260,6 @@ def decode_sb(t: TaskContext, bl: int, node) -> None:
     if have_h_split and have_v_split:
         n_part = int(tables.partition_type_count[bl])
         bp = ts.msac.decode_symbol_adapt(pc, n_part)
-        trace("poc=%d,y=%d,x=%d,bl=%d,ctx=%d,bp=%d: r=%d",
-              f.frame_hdr.frame_offset, t.by, t.bx, bl, ctx, bp, ts.msac.rng)
         if f.layout == PixelLayout.I422 and bp in (
                 BP.V, BP.V4, BP.T_LEFT_SPLIT, BP.T_RIGHT_SPLIT):
             raise ValueError("illegal vertical partition in 4:2:2")
@@ -481,7 +476,6 @@ def decode_b(t: TaskContext, bl: int, bs: int, bp: int,
     else:
         sctx = int(t.a.skip[bx4]) + int(t.l.skip[by4])
         b.skip = ts.msac.decode_bool_adapt(ts.cdf.m.skip[sctx])
-        trace("Post-skip[%d]: r=%d", b.skip, ts.msac.rng)
 
     # post-skip segment id
     if (hdr.segmentation.enabled and hdr.segmentation.update_map
@@ -622,7 +616,6 @@ def _decode_b_intra(t, b, bl, bs, bp, intra_edge_flags, b_dim,
             int(tables.intra_mode_context[int(t.a.mode[bx4])])][
             int(tables.intra_mode_context[int(t.l.mode[by4])])]
     b.y_mode = ts.msac.decode_symbol_adapt(ymode_cdf, 12)
-    trace("Post-ymode[%d]: r=%d", b.y_mode, ts.msac.rng)
 
     # angle delta
     if int(b_dim[2]) + int(b_dim[3]) >= 2 and \
@@ -640,7 +633,6 @@ def _decode_b_intra(t, b, bl, bs, bp, intra_edge_flags, b_dim,
         uvmode_cdf = ts.cdf.m.uv_mode[int(cfl_allowed)][b.y_mode]
         b.uv_mode = ts.msac.decode_symbol_adapt(
             uvmode_cdf, 13 - (not cfl_allowed))
-        trace("Post-uvmode[%d]: r=%d", b.uv_mode, ts.msac.rng)
         b.uv_angle = 0
         if b.uv_mode == M.CFL_PRED:
             sign = ts.msac.decode_symbol_adapt(ts.cdf.m.cfl_sign, 7) + 1
@@ -676,13 +668,11 @@ def _decode_b_intra(t, b, bl, bs, bp, intra_edge_flags, b_dim,
             pal_ctx = int(t.a.pal_sz[bx4] > 0) + int(t.l.pal_sz[by4] > 0)
             use_y_pal = ts.msac.decode_bool_adapt(
                 ts.cdf.m.pal_y[sz_ctx][pal_ctx])
-            trace("Post-y_pal[%d]: r=%d", use_y_pal, ts.msac.rng)
             if use_y_pal:
                 _read_pal_plane(t, b, 0, sz_ctx, bx4, by4)
         if has_chroma and b.uv_mode == M.DC_PRED:
             pal_ctx = int(b.pal_sz[0] > 0)
             use_uv_pal = ts.msac.decode_bool_adapt(ts.cdf.m.pal_uv[pal_ctx])
-            trace("Post-uv_pal[%d]: r=%d", use_uv_pal, ts.msac.rng)
             if use_uv_pal:  # aomedia bug 2183: luma coordinates
                 _read_pal_uv(t, b, sz_ctx, bx4, by4)
 
@@ -695,7 +685,6 @@ def _decode_b_intra(t, b, bl, bs, bp, intra_edge_flags, b_dim,
 
     if b.pal_sz[0]:
         t.pal_idx_y = _read_pal_indices(t, b.pal_sz[0], 0, w4, h4, bw4, bh4)
-        trace("Post-y-pal-indices: r=%d", ts.msac.rng)
     if has_chroma and b.pal_sz[1]:
         ss_ver = int(f.layout == PixelLayout.I420)
         ss_hor = int(f.layout != PixelLayout.I444)
@@ -703,7 +692,6 @@ def _decode_b_intra(t, b, bl, bs, bp, intra_edge_flags, b_dim,
         ch4 = (h4 + ss_ver) >> ss_ver
         t.pal_idx_uv = _read_pal_indices(t, b.pal_sz[1], 1, cw4, ch4,
                                          cbw4, cbh4)
-        trace("Post-uv-pal-indices: r=%d", ts.msac.rng)
 
     # tx size
     if hdr.segmentation.lossless[b.seg_id]:
@@ -723,7 +711,6 @@ def _decode_b_intra(t, b, bl, bs, bp, intra_edge_flags, b_dim,
             for _ in range(depth):
                 b.tx = int(t_dim[6])  # sub
                 t_dim = tables.txfm_info()[b.tx]
-            trace("Post-tx[%d]: r=%d", b.tx, ts.msac.rng)
 
     # reconstruction (pass 0: fused)
     from ..recon.intra import recon_b_intra
@@ -865,9 +852,6 @@ def _decode_b_intrabc(t, b, bl, bs, bp, intra_edge_flags, b_dim,
         raise ValueError("intrabc mv overlaps current superblock")
 
     b.mv = [((src_top - t.by * 4) * 8, (src_left - t.bx * 4) * 8), None]
-    trace("Post-dmv[%d/%d,ref=%d/%d|%d/%d]: r=%d", b.mv[0][0], b.mv[0][1],
-          ref[0], ref[1], mvstack[0]["mv"][0][0], mvstack[0]["mv"][0][1],
-          ts.msac.rng)
 
     b.comp_type = CompInterType.NONE
     b.motion_mode = MotionMode.TRANSLATION
@@ -1033,8 +1017,6 @@ def read_vartx_tree(t, b, bs, bx4, by4):
             y += yh
             y_off += 1
         t.by -= y
-        trace("Post-vartxtree[%x/%x]: r=%d", tx_split[0], tx_split[1],
-              t.ts.msac.rng)
         b.uvtx = int(tables.max_txfm_size_for_bs[bs][f.layout])
     b.tx_split0 = tx_split[0] & 0xFF
     b.tx_split1 = tx_split[1]
@@ -1045,8 +1027,8 @@ def _decode_b_inter(t, b, bl, bs, bp, intra_edge_flags, b_dim,
                     have_top, have_left, has_chroma, seg, seg_pred):
     """Inter-specific mode/mv parsing (reference src/decode.c:1381-2067)."""
     from .. import env
-    from ..refmvs import (RefMvsTile, fix_mv_precision, get_gmv_2d,
-                          refmvs_find, splat_mv)
+    from ..refmvs import (fix_mv_precision, get_gmv_2d, refmvs_find,
+                          splat_mv)
     from ..levels import (CompInterPredMode as CIPM, CompInterType,
                           InterPredMode as IPM, InterIntraType, MotionMode,
                           WEDGE_ALLOWED_MASK, INTERINTRA_ALLOWED_MASK)
@@ -1080,9 +1062,6 @@ def _decode_b_inter(t, b, bl, bs, bp, intra_edge_flags, b_dim,
             t.by, t.bx)
         b.mv = [fix_mv_precision(hdr, *mvstack[0]["mv"][0]),
                 fix_mv_precision(hdr, *mvstack[0]["mv"][1])]
-        trace("Post-skipmodeblock[mv=1:y=%d,x=%d,2:y=%d,x=%d,refs=%d+%d",
-              b.mv[0][0], b.mv[0][1], b.mv[1][0], b.mv[1][1],
-              b.ref[0], b.ref[1])
         b.motion_mode = MotionMode.TRANSLATION
         b.interintra_type = InterIntraType.NONE
         filter_ = _read_filter(t, b, has_subpel_filter, 1, by4, bx4)
@@ -1128,15 +1107,12 @@ def _decode_b_inter(t, b, bl, bs, bp, intra_edge_flags, b_dim,
                                                      have_top, have_left)
                     b.ref[1] += msac.decode_bool_adapt(
                         ts.cdf.m.comp_uni_ref[2][uctx_p2])
-        trace("Post-refs[%d/%d]: r=%d", b.ref[0], b.ref[1], msac.rng)
 
         mvstack, n_mvs, ctx = refmvs_find(
             t.rt, (b.ref[0] + 1, b.ref[1] + 1), bs, intra_edge_flags,
             t.by, t.bx)
         b.inter_mode = msac.decode_symbol_adapt(
             ts.cdf.m.comp_inter_mode[ctx], 7)
-        trace("Post-compintermode[%d,ctx=%d,n_mvs=%d]: r=%d",
-              b.inter_mode, ctx, n_mvs, msac.rng)
 
         im = tables.comp_inter_pred_modes[b.inter_mode]
         b.drl_idx = 0
@@ -1175,8 +1151,6 @@ def _decode_b_inter(t, b, bl, bs, bp, intra_edge_flags, b_dim,
                 b.mv[idx] = mvstack[b.drl_idx]["mv"][idx]
                 mv_prec = hdr.hp - hdr.force_integer_mv
                 b.mv[idx] = read_mv_residual(ts, b.mv[idx], mv_prec)
-        trace("Post-residual_mv[1:y=%d,x=%d,2:y=%d,x=%d]: r=%d",
-              b.mv[0][0], b.mv[0][1], b.mv[1][0], b.mv[1][1], msac.rng)
 
         # jnt_comp vs seg vs wedge
         is_segwedge = 0
@@ -1195,7 +1169,6 @@ def _decode_b_inter(t, b, bl, bs, bp, intra_edge_flags, b_dim,
             else:
                 b.comp_type = CompInterType.AVG
         else:
-            from ..levels import BlockSize as BS
             if WEDGE_ALLOWED_MASK & (1 << bs):
                 wctx = int(tables.wedge_ctx_lut[bs])
                 b.comp_type = CompInterType.WEDGE - msac.decode_bool_adapt(
@@ -1240,7 +1213,6 @@ def _decode_b_inter(t, b, bl, bs, bp, intra_edge_flags, b_dim,
                                                  have_top, have_left)
                     ref0 = msac.decode_bool_adapt(ts.cdf.m.ref[3][ctx3])
             b.ref = [ref0, -1]
-            trace("Post-ref[%d]: r=%d", b.ref[0], msac.rng)
         b.ref = [int(b.ref[0]), -1]
 
         mvstack, n_mvs, ctx = refmvs_find(
@@ -1277,9 +1249,6 @@ def _decode_b_inter(t, b, bl, bs, bp, intra_edge_flags, b_dim,
                 if b.drl_idx < 2:
                     mv0 = fix_mv_precision(hdr, *mv0)
                 b.mv = [mv0, None]
-            trace("Post-intermode[%d,drl=%d,mv=y:%d,x:%d,n_mvs=%d]: r=%d",
-                  b.inter_mode, b.drl_idx, b.mv[0][0], b.mv[0][1], n_mvs,
-                  msac.rng)
         else:
             has_subpel_filter = 1
             b.inter_mode = IPM.NEWMV
@@ -1295,12 +1264,8 @@ def _decode_b_inter(t, b, bl, bs, bp, intra_edge_flags, b_dim,
                 mv0 = mvstack[b.drl_idx]["mv"][0]
             else:
                 mv0 = fix_mv_precision(hdr, *mvstack[0]["mv"][0])
-            trace("Post-intermode[%d,drl=%d]: r=%d", b.inter_mode, b.drl_idx,
-                  msac.rng)
             mv_prec = hdr.hp - hdr.force_integer_mv
             b.mv = [read_mv_residual(ts, mv0, mv_prec), None]
-            trace("Post-residualmv[mv=y:%d,x:%d]: r=%d", b.mv[0][0],
-                  b.mv[0][1], msac.rng)
 
         # interintra
         ii_sz_grp = int(tables.ymode_size_context[bs])
@@ -1343,8 +1308,6 @@ def _decode_b_inter(t, b, bl, bs, bp, intra_edge_flags, b_dim,
             if b.motion_mode == MotionMode.WARP:
                 has_subpel_filter = 0
                 t.warpmv = _derive_warpmv(t, bw4, bh4, masks, b.mv[0])
-            trace("Post-motionmode[%d]: r=%d [mask: 0x%x/0x%x]",
-                  b.motion_mode, msac.rng, masks[0], masks[1])
         else:
             b.motion_mode = MotionMode.TRANSLATION
 
@@ -1566,8 +1529,6 @@ def _read_pal_plane(t, b, pl, sz_ctx, bx4, by4):
                 m += 1
     else:
         pal[:n_used_cache] = used_cache
-    trace("Post-pal[pl=%d,sz=%d,cache_size=%d,used_cache=%d]: r=%d",
-          pl, pal_sz, len(cache), n_used_cache, msac.rng)
 
 
 def _read_pal_uv(t, b, sz_ctx, bx4, by4):
@@ -1589,7 +1550,6 @@ def _read_pal_uv(t, b, sz_ctx, bx4, by4):
     else:
         for i in range(b.pal_sz[1]):
             pal[i] = msac.decode_bools(bpc)
-    trace("Post-pal[pl=2]: r=%d", msac.rng)
 
 
 def _order_palette(tmp, i, first, last, order, ctxs):
@@ -1849,15 +1809,9 @@ def _read_filter(t, b, has_subpel_filter, comp, by4, bx4):
             if f.seq_hdr.dual_filter:
                 ctx2 = env.get_filter_ctx(t.a, t.l, comp, 1, b.ref[0],
                                           by4, bx4)
-                trace("Post-subpel_filter1[%d,ctx=%d]: r=%d", f0, ctx1,
-                      ts.msac.rng)
                 f1 = ts.msac.decode_symbol_adapt(ts.cdf.m.filter[1][ctx2], 2)
-                trace("Post-subpel_filter2[%d,ctx=%d]: r=%d", f1, ctx2,
-                      ts.msac.rng)
             else:
                 f1 = f0
-                trace("Post-subpel_filter[%d,ctx=%d]: r=%d", f0, ctx1,
-                      ts.msac.rng)
             return [f0, f1]
         return [0, 0]
     return [int(hdr.subpel_filter_mode), int(hdr.subpel_filter_mode)]

@@ -73,18 +73,21 @@ def _api_call(tag):
 class Settings:
     """Mirror of Dav1dSettings (reference include/dav1d/dav1d.h:78-99).
 
-    n_threads >= 2 enables the reconstruction workers: pass 2 + the
-    filter chain of submitted frames run on a pool of ``n_fc`` worker
-    threads (``ceil(sqrt(n_threads))``, at most 8) while the caller's
-    thread entropy-decodes the next frames — the reference's
+    Every frame's pass 1 runs in ``send_data`` on the caller's thread;
+    its pass 2 + filter chain become an output entry, and the entries
+    leave in submission order, at most ``max_frame_delay`` in flight.
+    A shown existing frame waits in output order behind them, with no
+    drain.  n_threads >= 2 runs the entries on a pool of ``n_fc``
+    worker threads (``ceil(sqrt(n_threads))``, at most 8) while the
+    caller's thread entropy-decodes the next frames — the reference's
     frame-threading overlap (src/lib.c:109-126) with real thread
     parallelism on multi-core hosts (the native C passes release the
-    GIL).  Each frame is handed to the pool, in decode order, as soon
-    as its pass 1 ends, and starts its pass 2 once the reference slots
-    it reads are ready, so frames that do not depend on each other
-    reconstruct at once.  A shown existing frame waits in output order
-    behind the frames in flight, with no drain.  Output order and
-    bit-exactness are unchanged: pictures leave in submission order."""
+    GIL).  Each frame is handed to the pool as soon as its pass 1 ends,
+    and starts its pass 2 once the reference slots it reads are ready,
+    so frames that do not depend on each other reconstruct at once.
+    Without a pool an entry runs on the caller's thread when the delay
+    or ``get_picture`` collects it.  Output order and bit-exactness are
+    the same at any thread count."""
 
     n_threads: int = 0
     max_frame_delay: int = 0
@@ -243,9 +246,29 @@ class _Shown:
         return _existing_picture(self.slot)
 
 
+class _Deferred:
+    """Without a worker pool, a frame's output entry: its pass 2 and
+    filter chain, run on the caller's thread when the entry is resolved
+    (``result``).  Never done before that, and an entry leaves the list
+    as it is resolved, so it runs once."""
+
+    __slots__ = ("task",)
+
+    def __init__(self, task):
+        self.task = task
+
+    def done(self) -> bool:
+        return False
+
+    def result(self):
+        return self.task()
+
+
 class Decoder:
-    """Single-threaded decode pipeline (frame threading and the device
-    batch pipeline layer on top of this state machine)."""
+    """The decoder's state machine and its frame pipeline: one ordered
+    list of output entries (a frame's worker future or deferred finish,
+    or a shown existing frame), bounded by the frame delay (see
+    :class:`Settings`)."""
 
     @_api_call("api.open")
     def __init__(self, settings: Settings | None = None, device="cuda",
@@ -284,24 +307,23 @@ class Decoder:
         self.content_light = None
         self.mastering_display = None
         self.itut_t35: list = []
-        # without a worker pool: frames submitted (pass 1 done, device
-        # residual batches in flight) but not yet finished (pass 2 +
-        # filters) — the frame pipeline (reference frame threading,
-        # src/lib.c:109-126 / src/thread_task.c); bounded by
-        # Settings.max_frame_delay
-        self._pending: list = []
-        # n_threads >= 2: reconstruction workers.  Pool size follows the
-        # reference's frame-context count n_fc = ceil(sqrt(n_threads)),
-        # capped at 8 (src/lib.c:109-126).  A frame goes to the pool as
-        # soon as its pass 1 ends; frames execute concurrently, each
-        # gated only on the readiness of the ref slots it actually reads
+        # the frame pipeline (reference frame threading, src/lib.c:109-126
+        # / src/thread_task.c): frames submitted (pass 1 done, device
+        # residual batches in flight) leave through ``_entries``, one
+        # ordered list of their finishes (pass 2 + filters) and the
+        # shown existing frames queued behind them (_Shown), bounded by
+        # Settings.max_frame_delay — the reference's frame-thread output
+        # ring (c->frame_thread.out_delayed) — so emission order and
+        # bytes are unchanged at any thread count.  n_threads >= 2:
+        # reconstruction workers.  Pool size follows the reference's
+        # frame-context count n_fc = ceil(sqrt(n_threads)), capped at 8
+        # (src/lib.c:109-126).  A frame goes to the pool as soon as its
+        # pass 1 ends; frames execute concurrently, each gated only on
+        # the readiness of the ref slots it actually reads
         # (_RefSlot.ready) — the frame-granular form of the reference's
         # lowest_pixel/progress protocol (src/thread_task.c:393-439).
-        # Output leaves through ``_entries``, one ordered list of the
-        # frames' futures and the shown existing frames queued behind
-        # them (_Shown), bounded by the frame delay — the reference's
-        # frame-thread output ring (c->frame_thread.out_delayed) — so
-        # emission order and bytes are unchanged at any thread count.
+        # Without a pool a frame's finish is deferred (_Deferred) and
+        # runs on the caller's thread when its entry is collected.
         self._worker = None
         self._entries: list = []
         if self.settings.n_threads >= 2:
@@ -369,7 +391,7 @@ class Decoder:
                 # new sequence: finish in-flight frames, drop all state
                 self._log("sequence header changed: resetting decoder "
                           "state")
-                self._drain_pending()
+                self._drain()
                 self.frame_hdr = None
                 self.refs = [_RefSlot() for _ in range(8)]
             self.seq_hdr = seq
@@ -545,7 +567,7 @@ class Decoder:
         if not self._two_pass:
             # fused reconstruction reads ref pixels during pass 1 —
             # cannot overlap with unfinished frames
-            self._drain_pending()
+            self._drain()
         with devrt.frame(f._id), devrt.span("pass1"):
             decode_frame_pass1(f, self.tile_groups, two_pass=self._two_pass)
         f._queued_at = devrt.stamp()  # frame.queued runs from here
@@ -586,13 +608,13 @@ class Decoder:
             self._entries.append(self._worker.submit(
                 self._finish_task, f, hdr, meta, slots))
         else:
-            self._pending.append((f, hdr, meta, slots))
+            self._entries.append(_Deferred(functools.partial(
+                self._finish_task, f, hdr, meta, slots)))
         self._hold_to_delay()
 
     def _hold_to_delay(self) -> None:
         """Back-pressure: while more than the frame delay are in flight,
-        finish the oldest frame (no worker pool) or wait for the oldest
-        output entry."""
+        collect the oldest output entry, waiting."""
         delay = self.settings.max_frame_delay
         if delay <= 0:
             # auto: one frame in flight when the two-pass pipeline can
@@ -602,24 +624,8 @@ class Decoder:
             delay = 2 if self._two_pass else 1
             delay = max(delay, self.n_fc + 1)
         self._collect_entries(wait=False)
-        while len(self._pending) + len(self._entries) > delay:
-            self._retire_one()
-
-    def _retire_one(self) -> None:
-        """Finish the oldest pending frame on this thread (no worker
-        pool), else wait for the oldest output entry."""
-        if self._pending:
-            self._finish_one()
-        else:
+        while len(self._entries) > delay:
             self._collect_entries(wait=True, one=True)
-
-    def _finish_one(self) -> None:
-        """Pass 2 + filter chain for the oldest pending frame, on the
-        caller's thread (no worker pool); fills its ref-slot planes and
-        emits its output picture."""
-        pic = self._finish_task(*self._pending.pop(0))
-        if pic is not None:
-            self.out_queue.append(pic)
 
     def _finish_task(self, f, hdr, meta, slots):
         devrt.add_since("frame.queued", f._queued_at)
@@ -670,29 +676,28 @@ class Decoder:
         entry's error raises here, once the entry is off the list."""
         while self._entries and (wait or self._entries[0].done()):
             entry = self._entries.pop(0)
-            # the caller blocks till the entry is done: microseconds
-            # where it already is, so a window without a real wait
-            # still records the span
-            with devrt.span("wait.frames"):
-                pic = entry.result()
+            if isinstance(entry, _Deferred):
+                pic = entry.result()  # the frame runs here: no wait
+            else:
+                # the caller blocks till the entry is done: microseconds
+                # where it already is, so a window without a real wait
+                # still records the span
+                with devrt.span("wait.frames"):
+                    pic = entry.result()
             if pic is not None:
                 self.out_queue.append(pic)
             if one:
                 return
 
-    def _drain_pending(self) -> None:
+    def _drain(self) -> None:
         """Finish every frame in flight (a drain, counted as
         ``frames.drains`` where any was)."""
-        if self._pending or self._entries:
+        if self._entries:
             devrt.COUNTS["frames.drains"] += 1
-        while self._pending:
-            self._finish_one()
         self._collect_entries(wait=True)
 
     def _show_existing(self) -> None:
         hdr = self.frame_hdr
-        if self._worker is None:
-            self._drain_pending()  # the shown slot's planes may be pending
         slot = self.refs[hdr.existing_frame_idx]
         # readiness before planes: a slot that is ready has its final
         # planes, or none it will ever get
@@ -767,20 +772,20 @@ class Decoder:
     @_api_call("api.get")
     def get_picture(self) -> Optional[Picture]:
         self._collect_entries(wait=False)
-        while not self.out_queue and (self._pending or self._entries):
-            self._retire_one()
+        while not self.out_queue and self._entries:
+            self._collect_entries(wait=True, one=True)
         if self.out_queue:
             return self._maybe_apply_grain(self.out_queue.pop(0))
         return None
 
     def flush(self) -> None:
-        """Discard in-flight frames and queued output (reference
-        dav1d_flush, src/lib.c:610-664 — pending frames are dropped, the
-        caller restarts at a random access point)."""
-        self._pending.clear()
-        # let in-flight worker frames complete (they mutate ref slots);
-        # discard their output and swallow their errors — the caller is
-        # abandoning this decode position anyway
+        """Discard the output of the frames in flight and the queued
+        output (reference dav1d_flush, src/lib.c:610-664 — the caller
+        restarts at a random access point)."""
+        # let the frames in flight complete, a deferred one here (they
+        # fill ref slots, which later frames may wait on); discard their
+        # output and swallow their errors — the caller is abandoning
+        # this decode position anyway
         for entry in self._entries:
             try:
                 entry.result()
@@ -799,16 +804,17 @@ class Decoder:
         GOP-parallel axis (SURVEY §2.7 "GOPs → hosts"): a second host
         imports these bytes and continues the stream from here with
         byte-identical output — the ref-plane broadcast the reference's
-        shared-memory frame threads get for free, made explicit.  Every
-        sent TU must be fully decoded and drained (send_data + while
-        get_picture()) before exporting.
+        shared-memory frame threads get for free, made explicit.  The frames
+        in flight are finished first (their pictures stay queued for
+        get_picture); a frame whose tile groups have not all been sent
+        refuses the export.
 
         Uses pickle: the payload is decoder-internal state exchanged
         between trusted workers of one deployment, not a container
         format; import only states you produced."""
         self._collect_entries(wait=True)
-        if self._pending or self.tile_groups:
-            raise RuntimeError("export_state with frames in flight")
+        if self.tile_groups:
+            raise RuntimeError("export_state with a frame partly received")
         slots = []
         for s in self.refs:
             slots.append(dict(

@@ -2,8 +2,7 @@
 
 The host side of the decoder is Amdahl-bound by the serial MSAC symbol
 loop (SURVEY.md §7 design stance); this module provides the C fast path
-with bit-identical semantics to dav1d_tpu.msac / recon.coef. Set
-DAV1D_TPU_NO_NATIVE=1 to force the pure-Python reference path.
+with bit-identical semantics to dav1d_tpu.msac / recon.coef.
 """
 
 from __future__ import annotations
@@ -164,8 +163,6 @@ class CRefMvsFrame(ctypes.Structure):
 
 
 def _load():
-    if os.environ.get("DAV1D_TPU_NO_NATIVE"):
-        return None
     so = _build()
     if so is None:
         return None
@@ -194,18 +191,6 @@ def _load():
     lib.dtpu_decode_subexp.argtypes = [P(CMsac), ctypes.c_int, ctypes.c_int,
                                        ctypes.c_uint]
     lib.dtpu_decode_subexp.restype = ctypes.c_int
-    lib.dtpu_decode_coefs_tail.argtypes = [
-        P(CMsac),
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        u16p, ctypes.c_int,      # eob_bin cdf, nsym
-        u16p, u16p, u16p, u16p, u16p,  # eob_hi, eob_base, base, br, dc_sign
-        ctypes.c_void_p, ctypes.c_void_p,  # scan, lo_ctx_offsets
-        ctypes.c_int,            # dc_sign_ctx
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_uint32,         # dq0, dq1, qm, dq_shift, cf_max
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-    lib.dtpu_decode_coefs_tail.restype = ctypes.c_int
     lib.dtpu_decode_coefs.argtypes = [
         ctypes.POINTER(DtpuCoefCtx), P(CMsac),
         ctypes.c_void_p, ctypes.c_int,        # a, a_off

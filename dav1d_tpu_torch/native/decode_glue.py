@@ -1142,137 +1142,6 @@ class NativeFrameDecode:
                 type=ent[0], filter_v=list(ent[1]), filter_h=list(ent[2]),
                 sgr_weights=list(ent[3]))
 
-    def finish(self):
-        """Convert the capture arenas into FrameContext.tasks replay
-        records + the lr_units dict (bit-identical to the Python pass-1
-        capture)."""
-        from ..decode.tile import Av1Block
-        from ..headers import WarpedMotionParams
-
-        f = self.f
-        c = self.c
-        n = int(c.n_blocks)
-        blocks = self.cap_blocks[:n].tolist()
-        meta = self.cap_coef_meta[: int(c.n_coef_meta)].tolist()
-        obmc_rows = self.cap_obmc[: int(c.n_obmc)].tolist()
-        warps = self.cap_warp[: int(c.n_warp)]
-        cf = self.cf_arena
-        pal_arena = self.pal_arena
-        cap_pal = self.cap_pal
-        bdim = tables.block_dimensions
-        ss_hor, ss_ver = f.ss_hor, f.ss_ver
-
-        # map block index -> TileState via the per-call boundaries
-        tile_bounds = self.block_tile
-        ti = 0
-
-        tasks = []
-        for i in range(n):
-            (bx, by, bs, bl, bp, kind, skip, skip_mode, seg_id, edge_flags,
-             y_mode, uv_mode, tx, uvtx, y_angle, uv_angle, cfl_alpha,
-             pal_sz, sm_flags, filter2d, max_ytx, comp_type, inter_mode,
-             motion_mode, drl_idx, interintra_type, interintra_mode,
-             wedge_idx, mask_sign, tx_split0, _p0, _p1, tx_split1, _p2,
-             mv, warp_idx, obmc_start, obmc_count, sub8x8, coef_start,
-             coef_count, pal_idx, pal_y_off, pal_uv_off) = blocks[i]
-            while ti < len(tile_bounds) and i >= tile_bounds[ti][0]:
-                ti += 1
-            ts = tile_bounds[ti][1]
-
-            b = Av1Block()
-            b.bl, b.bs, b.bp = bl, bs, bp
-            b.intra = int(kind == 0)
-            b.seg_id = seg_id
-            b.skip_mode = skip_mode
-            b.skip = skip
-            b.uvtx = uvtx
-            b.y_mode = y_mode
-            b.uv_mode = uv_mode
-            b.tx = tx
-            b.pal_sz = [int(pal_sz[0]), int(pal_sz[1])]
-            b.y_angle = y_angle
-            b.uv_angle = uv_angle
-            b.cfl_alpha = [int(cfl_alpha[0]), int(cfl_alpha[1])]
-            b.mv = [(int(mv[0][0]), int(mv[0][1])),
-                    (int(mv[1][0]), int(mv[1][1]))]
-            b.wedge_idx = wedge_idx
-            b.mask_sign = mask_sign
-            b.interintra_mode = interintra_mode
-            b.comp_type = comp_type
-            b.inter_mode = inter_mode
-            b.motion_mode = motion_mode
-            b.drl_idx = drl_idx
-            b.ref = [-1, -1]
-            b.max_ytx = max_ytx
-            b.filter2d = filter2d
-            b.interintra_type = interintra_type
-            b.tx_split0 = tx_split0
-            b.tx_split1 = tx_split1
-
-            coefs = []
-            for mrow in meta[coef_start: coef_start + coef_count]:
-                eob, txtp, pltx, dst_y, dst_x, cf_off = mrow
-                pl = pltx & 0xFF
-                mtx = pltx >> 8
-                arr = None
-                if cf_off >= 0:
-                    nc = _n_coef(mtx)
-                    arr = cf[cf_off: cf_off + nc]
-                coefs.append((eob, txtp, arr, pl, mtx, dst_y, dst_x))
-
-            rec = dict(ts=ts, bx=bx, by=by, bs=bs, b=b, coefs=coefs,
-                       _cap=(i, coef_start))
-            if kind == 0:
-                rec["kind"] = "intra"
-                rec["edge_flags"] = edge_flags
-                rec["sm"] = (512 if sm_flags & 1 else 0,
-                             512 if sm_flags & 2 else 0)
-                if pal_idx >= 0:
-                    bw4, bh4 = int(bdim[bs][0]), int(bdim[bs][1])
-                    idx_y = None
-                    if pal_y_off >= 0:
-                        idx_y = pal_arena[pal_y_off:
-                                          pal_y_off + 16 * bw4 * bh4] \
-                            .reshape(bh4 * 4, bw4 * 4)
-                    idx_uv = None
-                    if pal_uv_off >= 0:
-                        cbw4 = (bw4 + ss_hor) >> ss_hor
-                        cbh4 = (bh4 + ss_ver) >> ss_ver
-                        idx_uv = pal_arena[pal_uv_off:
-                                           pal_uv_off + 16 * cbw4 * cbh4] \
-                            .reshape(cbh4 * 4, cbw4 * 4)
-                    rec["pal"] = (cap_pal[pal_idx], idx_y, idx_uv)
-                else:
-                    rec["pal"] = None
-            else:
-                rec["kind"] = "inter" if kind == 1 else "intrabc"
-                if kind == 1:
-                    b.ref = [_p0 - 1, _p1 - 1]
-                rec["warpmv"] = None
-                if warp_idx >= 0:
-                    w = warps[warp_idx]
-                    wmp = WarpedMotionParams()
-                    wmp.matrix = [int(v) for v in w["matrix"]]
-                    wmp.abcd = [int(v) for v in w["abcd"]]
-                    wmp.type = int(w["type"])
-                    rec["warpmv"] = wmp
-                rec["obmc"] = None
-                if motion_mode == 1:  # OBMC
-                    rec["obmc"] = [
-                        ("top" if o[0] == 0 else "left", int(o[1]),
-                         (int(o[2][0]), int(o[2][1])), int(o[3]),
-                         int(o[4]), int(o[5]))
-                        for o in obmc_rows[obmc_start:
-                                           obmc_start + obmc_count]]
-                rec["sub8x8"] = None
-                if sub8x8 >= 0:
-                    rec["sub8x8"] = (sub8x8 & 0xFF, (sub8x8 >> 8) & 0xFF,
-                                     (sub8x8 >> 16) & 0xFF)
-            tasks.append(rec)
-
-        self.finish_lr_units()
-        return tasks
-
 
 _N_COEF_CACHE = None
 

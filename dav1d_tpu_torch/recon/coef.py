@@ -5,26 +5,17 @@ dequant)."""
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
 
-from .. import debug
 from ..msac import MsacNative
 from ..native import lib as _native
 
 from .. import tables
-from ..debug import trace
 from ..levels import (
     TxClass, TxfmSize, TxfmType, IntraPredMode as M,
     RTX_4X8,
 )
-
-
-# full-native decode_coefs (one C call per tx block); the staged
-# Python-front-end + native-tail path below remains as the fallback and
-# the parity reference
-_FULL_NATIVE = os.environ.get("DAV1D_TPU_NO_COEF_FULL") != "1"
 
 
 def read_golomb(msac) -> int:
@@ -107,8 +98,9 @@ def decode_coefs(t, a, a_off, l, l_off, tx, bs, b, intra, plane,
                  ytxtp=None):
     """Returns (eob, txtp, cf, res_ctx). cf is an int32 array indexed by
     rc = (x << (slh+2)) | y (the reference's transposed layout)."""
-    if _FULL_NATIVE and _native is not None \
-            and isinstance(t.ts.msac, MsacNative) and not debug.TRACE:
+    if _native is not None and isinstance(t.ts.msac, MsacNative):
+        # one C call per tx block; the Python path below is the fallback
+        # where the native build is unavailable
         return decode_coefs_native(t, a, a_off, l, l_off, tx, bs, b,
                                    intra, plane, ytxtp)
     ts = t.ts
@@ -175,12 +167,6 @@ def decode_coefs(t, a, a_off, l, l_off, tx, bs, b, intra, plane,
 
     dq_tbl = ts.dq[b.seg_id][plane]
     qm_tbl = f.qm.get((tx, plane)) if txtp < TxfmType.IDTX else None
-    if _native is not None and isinstance(msac, MsacNative) \
-            and not debug.TRACE:
-        eob, cf, res_ctx = _decode_coefs_tail_native(
-            ts, msac, f, a, a_off, l, l_off, tx, plane, chroma,
-            tctx, tx2dszctx, tx_class, slw, slh, txtp, dq_tbl, qm_tbl)
-        return eob, txtp, cf, res_ctx
     eob, cf, res_ctx = _decode_coefs_tail_py(
         msac, coef, a, a_off, l, l_off, tx, plane, chroma, tctx,
         tx2dszctx, tx_class, slw, slh, txtp, dq_tbl, qm_tbl, f.bitdepth)
@@ -350,14 +336,10 @@ def _decode_coefs_tail_py(msac, coef, a, a_off, l, l_off, tx, plane,
         else:
             x, y = eob & mask, eob >> shift
             rc = (x << shift2) | y
-        trace("Post-lo_tok[%d][%d][%d][%d=%d=%d]: r=%d",
-              tctx, chroma, ctx, eob, rc, tok, msac.rng)
         if tok == 3:
             ctx = 14 if ((x | y) > 1 if tx_class == TxClass.TWO_D
                          else y != 0) else 7
             tok = msac.decode_hi_tok(hi_cdf[ctx])
-            trace("Post-hi_tok[%d][%d][%d][%d=%d=%d]: r=%d",
-                  min(tctx, 3), chroma, ctx, eob, rc, tok, msac.rng)
         cf[rc] = tok
         nz = [rc]  # nonzero AC positions, descending scan order
         lvl_base = rc if tx_class == TxClass.TWO_D else x * stride + y
@@ -378,14 +360,10 @@ def _decode_coefs_tail_py(msac, coef, a, a_off, l, l_off, tx, plane,
             ctx, br_mag = get_lo_ctx(levels, lvl_base, tx_class,
                                      lo_ctx_offsets, x, y, stride)
             tok = msac.decode_symbol_adapt(lo_cdf[ctx], 3)
-            trace("Post-lo_tok[%d][%d][%d][%d=%d=%d]: r=%d",
-                  tctx, chroma, ctx, i, rc_i, tok, msac.rng)
             if tok == 3:
                 far = (x | y) > 1 if tx_class == TxClass.TWO_D else y > 0
                 ctx = (14 if far else 7) + min(6, (br_mag + 1) >> 1)
                 tok = msac.decode_hi_tok(hi_cdf[ctx])
-                trace("Post-hi_tok[%d][%d][%d][%d=%d=%d]: r=%d",
-                      min(tctx, 3), chroma, ctx, i, rc_i, tok, msac.rng)
             levels[lvl_base] = tok
             if tok:
                 cf[rc_i] = tok
@@ -400,15 +378,11 @@ def _decode_coefs_tail_py(msac, coef, a, a_off, l, l_off, tx, plane,
                                           lo_ctx_offsets, 0, 0, stride)
             ctx = base_ctx
         dc_tok = msac.decode_symbol_adapt(lo_cdf[ctx], 3)
-        trace("Post-dc_lo_tok[%d][%d][%d][%d]: r=%d",
-              tctx, chroma, ctx, dc_tok, msac.rng)
         if dc_tok == 3:
             if tx_class == TxClass.TWO_D:
                 br_mag = int(levels[1]) + int(levels[stride]) + \
                     int(levels[stride + 1])
             dc_tok = msac.decode_hi_tok(hi_cdf[min(6, (br_mag + 1) >> 1)])
-            trace("Post-dc_hi_tok[%d][%d][0][%d]: r=%d",
-                  min(tctx, 3), chroma, dc_tok, msac.rng)
     else:
         tok_br = msac.decode_symbol_adapt(eob_cdf[0], 2)
         dc_tok = 1 + tok_br
@@ -430,8 +404,6 @@ def _decode_coefs_tail_py(msac, coef, a, a_off, l, l_off, tx, plane,
     if not skip_dc:
         dc_sign_ctx = get_dc_sign_ctx(tx, a, a_off, l, l_off)
         dc_sign = msac.decode_bool_adapt(coef.dc_sign[chroma][dc_sign_ctx])
-        trace("Post-dc_sign[%d][%d][%d]: r=%d", chroma, dc_sign_ctx, dc_sign,
-              msac.rng)
         dc_dq = int(dq_tbl[0])
         dc_sign_level = (dc_sign - 1) & (2 << 6)
 
@@ -451,7 +423,6 @@ def _decode_coefs_tail_py(msac, coef, a, a_off, l, l_off, tx, plane,
     ac_dq = int(dq_tbl[1])
     for rc in reversed(nz):
         sign = msac.decode_bool_equi()
-        trace("Post-sign[%d=%d]: r=%d", rc, sign, msac.rng)
         tok = int(cf[rc])
         dq = ((ac_dq * int(qm_tbl[rc]) + 16) >> 5) if qm_tbl is not None \
             else ac_dq
@@ -469,63 +440,6 @@ def _decode_coefs_tail_py(msac, coef, a, a_off, l, l_off, tx, plane,
     return eob, cf, res_ctx
 
 
-def _decode_coefs_tail_native(ts, msac, f, a, a_off, l, l_off, tx,
-                              plane, chroma, tctx, tx2dszctx, tx_class,
-                              slw, slh, txtp, dq_tbl, qm_tbl):
-    """Post-txtp coefficient decode via the C core (bit-identical to the
-    Python path below; dav1d_tpu/native/msac_coef.c)."""
-    coef = ts.cdf.coef
-    eob_rows = ((coef.eob_bin_16, 4), (coef.eob_bin_32, 5),
-                (coef.eob_bin_64, 6), (coef.eob_bin_128, 7),
-                (coef.eob_bin_256, 8), (coef.eob_bin_512, 9),
-                (coef.eob_bin_1024, 10))
-    arr, nsym = eob_rows[tx2dszctx]
-    is_1d = int(tx_class != TxClass.TWO_D)
-    eob_bin = arr[chroma][is_1d] if tx2dszctx < 5 else arr[chroma]
-
-    if tx_class == TxClass.TWO_D:
-        scan = tables.scans()[tx]
-        scan_ptr = scan.ctypes.data
-        nonsquare_tx = int(tx >= RTX_4X8)
-        lo_off = tables.lo_ctx_offsets[nonsquare_tx + (tx & nonsquare_tx)]
-        lo_ptr = lo_off.ctypes.data
-        lvl_n = (4 << slh) * ((4 << slw) + 2)
-    else:
-        scan_ptr = None
-        lo_ptr = None
-        lvl_n = 16 * ((4 << (slw if tx_class == TxClass.V else slh)) + 2)
-
-    n_coef = (4 << slw) * (4 << slh)
-    cf = np.zeros(n_coef, dtype=np.int32)
-    levels = np.empty(lvl_n + 16, dtype=np.uint8)
-
-    qm_ptr = None
-    if qm_tbl is not None:
-        if qm_tbl.dtype != np.uint8:
-            qm_tbl = qm_tbl.astype(np.uint8)
-            f.qm[(tx, plane)] = qm_tbl
-        qm_ptr = qm_tbl.ctypes.data
-    t_dim = tables.txfm_info()[tx]
-    dq_shift = max(0, int(t_dim[7]) - 2)
-    cf_max = (~(~127 << (8 if f.bitdepth == 8 else f.bitdepth))) & 0xFFFFFFFF
-    dc_sign_ctx = get_dc_sign_ctx(tx, a, a_off, l, l_off)
-
-    eob_out = ctypes.c_int(0)
-    res_ctx = _native.dtpu_decode_coefs_tail(
-        ctypes.byref(msac.s), tctx, chroma, tx2dszctx, int(tx_class),
-        slw, slh, 0,
-        eob_bin.ctypes.data, nsym,
-        coef.eob_hi_bit[tctx][chroma].ctypes.data,
-        coef.eob_base_tok[tctx][chroma].ctypes.data,
-        coef.base_tok[tctx][chroma].ctypes.data,
-        coef.br_tok[min(tctx, 3)][chroma].ctypes.data,
-        coef.dc_sign[chroma].ctypes.data,
-        scan_ptr, lo_ptr, dc_sign_ctx,
-        int(dq_tbl[0]), int(dq_tbl[1]), qm_ptr, dq_shift, cf_max,
-        cf.ctypes.data, levels.ctypes.data, ctypes.byref(eob_out))
-    return eob_out.value, cf, res_ctx
-
-
 def intra_coefs_pass1(t, b, bs, bx4, by4, w4, h4, ss_hor, ss_ver,
                       has_chroma):
     """Pass-1 intra coefficient capture via ONE native call per block
@@ -535,8 +449,7 @@ def intra_coefs_pass1(t, b, bs, bx4, by4, w4, h4, ss_hor, ss_ver,
     to the per-tx-block walk)."""
     ts = t.ts
     f = t.f
-    if not (_FULL_NATIVE and _native is not None
-            and isinstance(ts.msac, MsacNative) and not debug.TRACE):
+    if not (_native is not None and isinstance(ts.msac, MsacNative)):
         return False
     hdr = f.frame_hdr
     cxe = getattr(ts, "_ncoef", None)

@@ -6,10 +6,9 @@ from __future__ import annotations
 import numpy as np
 
 from .. import tables
-from ..debug import trace
 from ..headers import PixelLayout
-from ..levels import (CompInterPredMode, CompInterType, InterIntraType,
-                      InterPredMode, MotionMode)
+from ..levels import (CompInterPredMode, CompInterType, InterPredMode,
+                      MotionMode)
 from . import mc_np
 from ..native import lib as _nlib
 from .coef import decode_coefs
@@ -533,9 +532,6 @@ def recon_b_inter(t, bs, b) -> None:
                                     t, t.a.ccoef[pl], cbx4 + x,
                                     t.l.ccoef[pl], cby4 + y, b.uvtx, bs, b,
                                     0, 1 + pl, ytxtp=txtp)
-                                trace("Post-uv-cf-blk[pl=%d,tx=%d,txtp=%d,"
-                                      "eob=%d]: r=%d", pl, b.uvtx, txtp,
-                                      eob, ts.msac.rng)
                                 ctw = min(utw,
                                           (f.bw - t.bx + ss_hor) >> ss_hor)
                                 cth = min(uth,
@@ -642,8 +638,6 @@ def read_coef_tree(t, bs, b, ytx, depth, tx_split, x_off, y_off, do_recon):
         else:
             eob, txtp, cf, cf_ctx = decode_coefs(
                 t, t.a.lcoef, bx4, t.l.lcoef, by4, ytx, bs, b, 0, 0)
-            trace("Post-y-cf-blk[tx=%d,txtp=%d,eob=%d]: r=%d",
-                  ytx, txtp, eob, ts.msac.rng)
             t.a.lcoef[bx4 : bx4 + min(txw, f.bw - t.bx)] = cf_ctx
             t.l.lcoef[by4 : by4 + min(txh, f.bh - t.by)] = cf_ctx
             t.txtp_map[by4 : by4 + txh, bx4 : bx4 + txw] = txtp

@@ -4,15 +4,12 @@ coefficient decode + inverse transform add."""
 
 from __future__ import annotations
 
-import numpy as np
-
 from .. import tables
 from ..headers import PixelLayout
 from ..intra_edge import EDGE_I444_LEFT_HAS_BOTTOM, EDGE_I444_TOP_HAS_RIGHT
-from ..levels import IntraPredMode as M, TxfmSize
+from ..levels import IntraPredMode as M
 from . import ipred as ipred_mod
 from .coef import decode_coefs
-from ..debug import trace
 from .itx import itx_add_cached
 
 SMOOTH_MODES = (M.SMOOTH_PRED, M.SMOOTH_H_PRED, M.SMOOTH_V_PRED)
@@ -41,8 +38,6 @@ def _coef_y(t, b, bs, bx4, by4, x, y, tw, th, dst_y, dst_x, f, ts,
         else:
             eob, txtp, cf, cf_ctx = decode_coefs(
                 t, t.a.lcoef, bx4 + x, t.l.lcoef, by4 + y, b.tx, bs, b, 1, 0)
-            trace("Post-y-cf-blk[tx=%d,txtp=%d,eob=%d]: r=%d",
-                  b.tx, txtp, eob, ts.msac.rng)
             t.a.lcoef[bx4 + x : bx4 + x + min(tw, f.bw - t.bx)] = cf_ctx
             t.l.lcoef[by4 + y : by4 + y + min(th, f.bh - t.by)] = cf_ctx
             if t.pass_ == 1:
@@ -68,9 +63,6 @@ def _coef_uv(t, b, bs, pl, x, y, cbx4, cby4, utw, uth, dst_y, dst_x, f,
             eob, txtp, cf, cf_ctx = decode_coefs(
                 t, t.a.ccoef[pl], cbx4 + x, t.l.ccoef[pl], cby4 + y,
                 b.uvtx, bs, b, 1, 1 + pl)
-            trace("Post-uv-cf-blk[pl=%d,tx=%d,txtp=%d,eob=%d]: r=%d "
-                  "[x=%d,cbx4=%d]", pl, b.uvtx, txtp, eob, ts.msac.rng,
-                  x, cbx4)
             ctw = min(utw, (f.bw - t.bx + ss_hor) >> ss_hor)
             cth = min(uth, (f.bh - t.by + ss_ver) >> ss_ver)
             t.a.ccoef[pl][cbx4 + x : cbx4 + x + ctw] = cf_ctx

@@ -146,10 +146,6 @@ def prepare_intra_edges(x, have_left, y, have_top, w, h, edge_flags,
 # all take (edge, ofs, width, height, angle_flags, max_w, max_h, bitdepth)
 # and return an (h, w) int32 block.
 
-def _fix(v):  # wrap left-index access: left[i] = edge[ofs-1-i]
-    return v
-
-
 def splat(value, width, height):
     return np.full((height, width), value, dtype=np.int32)
 

@@ -12,9 +12,10 @@ reference's per-SB128 32-lane bitmasks:
   stored value is class+1 (0 = no filter); luma classes 0/1/2 select
   widths 4/8/16, chroma classes 0/1 select widths 4/6.
 - Filter levels live in the per-4x4 cache `lf_level[y][x][plane_dir]`.
-- Application is full-frame: all vertical edges, then all horizontal
-  edges, each gathered with numpy and filtered in one batch per width
-  class.  Exactness: an edge of width class c has a transform block of
+- Application is full-frame (recon/device_chain._deblock on the
+  device, ops/lf.py): all vertical edges (``_collect_edges``), then all
+  horizontal edges, filtered in one batch; ``_loop_filter_batch`` is
+  the golden numpy model of one batch per width class.  Exactness: an edge of width class c has a transform block of
   at least its class width on both sides, so any two edges in the same
   direction are separated by at least that many pixels, which exceeds
   the filters' combined read+write reach for every class pairing - no
@@ -445,66 +446,6 @@ def _collect_edges(level, wd_plane, pd_idx, dir_, n_rows, n_cols):
             L[fb] = level[ys[fb] - 1, xs[fb], pd_idx]
     on = L != 0
     return ys[on], xs[on], cls[on], L[on]
-
-
-def _apply_edges(plane, level, wd_plane, pd_idx, dir_, wd_map, e_lut,
-                 i_lut, bitdepth, n_rows, n_cols):
-    """Filter every recorded edge of one plane/direction, batched per
-    width class (replaces the reference's per-sbrow
-    dav1d_loopfilter_sbrow_cols/rows, src/lf_apply_tmpl.c:313-466)."""
-    if _native is not None and wd_plane.flags["C_CONTIGUOUS"] \
-            and level.flags["C_CONTIGUOUS"]:
-        # whole-plane native pass: the C walks the width-class and level
-        # planes directly (no numpy nonzero/gather per direction).  The
-        # contiguity conditions guard the stride arithmetic below; a
-        # non-contiguous caller falls through to the gather path.
-        _native.dtpu_lf_filter_plane(
-            plane.ctypes.data, plane.shape[1],
-            wd_plane.ctypes.data, wd_plane.shape[1],
-            level.ctypes.data, level.shape[1] * 4,
-            int(pd_idx), int(n_rows), int(n_cols),
-            e_lut.ctypes.data, i_lut.ctypes.data,
-            dir_, int(pd_idx >= 2), bitdepth)
-        return
-    ys, xs, cls, L = _collect_edges(level, wd_plane, pd_idx, dir_,
-                                    n_rows, n_cols)
-    if ys.size == 0:
-        return
-    E = e_lut[L].astype(np.int64)
-    I = i_lut[L].astype(np.int64)
-    H = L >> 4
-    for c, wd_px in wd_map.items():
-        sel = cls == c
-        if not sel.any():
-            continue
-        _loop_filter_batch(plane, ys[sel] * 4, xs[sel] * 4, E[sel],
-                           I[sel], H[sel], dir_ == 0, wd_px, bitdepth)
-
-
-def deblock_frame(f) -> None:
-    """Full-frame deblock: all vertical edges, then all horizontal edges
-    (equivalence to the reference's per-sbrow interleaving argued in the
-    module docstring)."""
-    hdr = f.frame_hdr
-    if hdr.tiling.cols > 1 or hdr.tiling.rows > 1:
-        _fix_tile_boundaries(f)
-    e_lut, i_lut = f.lf_lim_lut
-    level = f.lf_level
-    ss_ver, ss_hor = f.ss_ver, f.ss_hor
-    ch4 = (f.h4 + ss_ver) >> ss_ver
-    cw4 = (f.w4 + ss_hor) >> ss_hor
-    do_uv = f.layout != PixelLayout.I400 and \
-        (hdr.loopfilter.level_u or hdr.loopfilter.level_v)
-    y_wd = {1: 4, 2: 8, 3: 16}
-    uv_wd = {1: 4, 2: 6}
-    for dir_ in (0, 1):  # vertical edges first, then horizontal
-        _apply_edges(f.planes[0], level, f.lf_wd_y[dir_], dir_, dir_,
-                     y_wd, e_lut, i_lut, f.bitdepth, f.h4, f.w4)
-        if do_uv:
-            for pl in (1, 2):
-                _apply_edges(f.planes[pl], level, f.lf_wd_uv[dir_],
-                             1 + pl, dir_, uv_wd, e_lut, i_lut,
-                             f.bitdepth, ch4, cw4)
 
 
 def _cap_classes(v, cap):

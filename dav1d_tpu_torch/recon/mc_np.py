@@ -262,16 +262,6 @@ def w_mask(t1, t2, sign, ss_hor, ss_ver, bitdepth):
     return out, mask.astype(np.uint8)
 
 
-def _scaled_filters(filter_type, w, h, sub):
-    """Subpel filter row for scaled MC; sub in 1..15, None if 0."""
-    tbl = tables.mc_subpel_filters
-    if sub == 0:
-        return None
-    if w > 4:
-        return tbl[filter_type & 3][sub - 1].astype(np.int64)
-    return tbl[3 + (filter_type & 1)][sub - 1].astype(np.int64)
-
-
 def put_8tap_scaled(plane, valid_w, valid_h, top, left, w, h, mx, my,
                     dx, dy, filter_type, bitdepth, prep=False):
     """Scaled-reference MC (reference put/prep_8tap_scaled_c,

@@ -10,8 +10,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from .headers import WarpedMotionType
-
 _DIV_LUT = np.array([
     16384, 16320, 16257, 16194, 16132, 16070, 16009, 15948, 15888, 15828,
     15768, 15709, 15650, 15592, 15534, 15477, 15420, 15364, 15308, 15252,
@@ -100,17 +98,6 @@ def _get_mult_shift_diag(px, idet, shift):
     v1 = px * idet
     v2 = _apply_sign((abs(v1) + ((1 << shift) >> 1)) >> shift, v1)
     return _iclip(v2, 0xE001, 0x11FFF)
-
-
-def set_affine_mv2d(bw4, bh4, mvy, mvx, wm, bx4, by4) -> None:
-    mat = wm.matrix
-    isuy = by4 * 4 + 2 * bh4 - 1
-    isux = bx4 * 4 + 2 * bw4 - 1
-    mat[0] = _iclip(mvx * 0x2000 - (isux * (mat[2] - 0x10000)
-                                    + isuy * mat[3]), -0x800000, 0x7FFFFF)
-    mat[1] = _iclip(mvy * 0x2000 - (isux * mat[4]
-                                    + isuy * (mat[5] - 0x10000)),
-                    -0x800000, 0x7FFFFF)
 
 
 def find_affine_int(pts, np_, bw4, bh4, mvy, mvx, wm, bx4, by4) -> bool:

@@ -1,6 +1,10 @@
-"""The port's frame pipeline with a worker pool (``n_threads >= 2``): a
-frame goes to the workers when its pass 1 ends, and a shown existing
-frame waits in output order behind the frames in flight, with no drain.
+"""The port's frame pipeline, with a worker pool (``n_threads >= 2``)
+and without one: a frame's finish is an output entry as soon as its
+pass 1 ends (on the workers, or deferred to the caller's thread), a
+shown existing frame waits in output order behind the frames in flight,
+with no drain, and ``flush()`` finishes the frames in flight, so a
+decode restarted after it never waits on a reference slot that nothing
+will fill.
 
 The stream is the benchmark's small film-grain clip
 (``av1bench/tests/data/tiny10g/clip0.ivf``: 160x96 10-bit 4:2:0, 12
@@ -8,9 +12,9 @@ temporal units, 4 of which show an existing frame, 16 frames decoded),
 decoded on the CPU with the benchmark's settings, 4 units in flight as
 the benchmark's stream cells keep them.  Pictures are held against
 libaom's digests (``reference.json``, each plane's MD5 as
-``av1bench/check.py`` takes it) and against a decode without workers;
-the producer of the first shown existing frame is held on its worker (or
-made to fail) through a wrapped ``decode_frame_finish``."""
+``av1bench/check.py`` takes it) and across thread counts; the producer
+of the first shown existing frame is held on its worker (or made to
+fail) through a wrapped ``decode_frame_finish``."""
 
 import importlib.util
 import json
@@ -96,10 +100,14 @@ def _moved(before):
     return {k: v - before[k] for k, v in _counts().items()}
 
 
-@pytest.mark.parametrize("delay", [4, 0])
-def test_shown_existing_frames_queue_without_a_drain(clip, delay):
+# the pool's cases keep the ids they had before the serial ones came
+@pytest.mark.parametrize("n_threads, delay", [
+    pytest.param(4, 4, id="4"), pytest.param(4, 0, id="0"),
+    pytest.param(0, 4, id="serial-4"), pytest.param(0, 0, id="serial-0")])
+def test_shown_existing_frames_queue_without_a_drain(clip, n_threads,
+                                                     delay):
     before = _counts()
-    pics = _decode(clip["tus"], 4, delay)
+    pics = _decode(clip["tus"], n_threads, delay)
     moved = _moved(before)
     assert [_md5s(p) for p in pics] == clip["md5"] == clip["serial"]
     assert len(clip["shown"]) == 4
@@ -209,3 +217,69 @@ def test_failed_producer_raises_and_flush_recovers(clip, monkeypatch):
             pics.append(p)
     dec.close()
     assert [_md5s(p) for p in pics] == clip["md5"]
+
+
+FLUSH_CUTS = (1, 2, 6, 8)  # units sent before the flush
+
+
+def _guarded(fn):
+    """``fn()`` on a thread of its own; fails where it has not returned
+    within ``TIMEOUT``."""
+    out = []
+    t = threading.Thread(target=lambda: out.append(fn()), daemon=True)
+    t.start()
+    t.join(TIMEOUT)
+    assert not t.is_alive(), "the decode hung"
+    assert out, "the decode raised on its thread"
+    return out[0]
+
+
+def _flushed(tus, n_threads, k):
+    """The outcomes of a decode that sends ``k`` units, flushes, then
+    sends the rest and drains: each picture's md5s, or the class name of
+    what a call raised."""
+    dec = _decoder(n_threads, 4)
+    out = []
+    for tu in tus[:k]:
+        dec.send_data(tu)
+    dec.flush()
+    for tu in tus[k:]:
+        try:
+            dec.send_data(tu)
+        except Exception as e:  # noqa: BLE001 (the class is compared)
+            out.append(type(e).__name__)
+        while True:
+            try:
+                p = dec.get_picture()
+            except Exception as e:  # noqa: BLE001
+                out.append(type(e).__name__)
+                continue
+            if p is None:
+                break
+            out.append(_md5s(p))
+    dec.close()
+    return out
+
+
+@pytest.fixture(scope="module")
+def flushed(clip):
+    """``(n_threads, k) -> outcomes`` of :func:`_flushed`, each decode
+    run once, under the hang guard."""
+    memo = {}
+
+    def get(n_threads, k):
+        if (n_threads, k) not in memo:
+            memo[n_threads, k] = _guarded(
+                lambda: _flushed(clip["tus"], n_threads, k))
+        return memo[n_threads, k]
+    return get
+
+
+@pytest.mark.parametrize("n_threads", [0, 4])
+def test_flush_with_frames_in_flight(clip, flushed, n_threads):
+    other = 4 if n_threads == 0 else 0
+    for k in FLUSH_CUTS:
+        got = flushed(n_threads, k)
+        assert got == flushed(other, k), k
+        # the flushed units' pictures are dropped, the rest are exact
+        assert got == clip["md5"][k:], k
