@@ -30,7 +30,9 @@ Phases; any failure exits non-zero:
    takes, windows inside, over every edge and beyond the reference's
    MC_PAD border, junk in the allocation rows and columns beyond the
    coded size, and one of only 128x128 luma and 4x4 chroma jobs (the
-   largest split into tiles, the smallest tiles); itx job lists holding
+   largest split into tiles, the smallest tiles), both also with two
+   jobs in three compound (CT_AVG and CT_WEIGHTED_AVG over a second
+   reference) among the single ones; itx job lists holding
    every valid (tx, txtp) pair with random and extreme coefficients,
    shuffled, in an arena with gaps, and sparse ones: zero rows between
    nonzero rows, a lone coefficient in the last column of the last
@@ -470,7 +472,7 @@ def _band_cases(label, n, plane, pm, sm, maps, ph, pw, w, h, damping, bd,
 
 
 def _mc_args(rng, device, bitdepth, shapes=SHAPES, n_refs=3, per=8,
-             blocks=None):
+             blocks=None, compound=False):
     """MC kernel arguments as a frame gives them: ``n_refs`` references
     of (luma, chroma, chroma) planes, allocation-sized with junk beyond
     the coded size; ``per`` jobs per (plane, block size) for every block
@@ -478,7 +480,10 @@ def _mc_args(rng, device, bitdepth, shapes=SHAPES, n_refs=3, per=8,
     (w, h)}, that one size per plane), a third of them inside the plane,
     a third over an edge, the rest anywhere up to 2*MC_PAD outside;
     filter rows from the subpel table, identity rows and random signed
-    taps."""
+    taps.  With ``compound``, two jobs in three blend a second reference
+    (the same plane of the next reference, another job's origin and
+    filter rows), by CT_AVG or CT_WEIGHTED_AVG with a jnt weight of the
+    codec's table, among the single-reference jobs of one launch."""
     import numpy as np
     import torch
 
@@ -526,13 +531,30 @@ def _mc_args(rng, device, bitdepth, shapes=SHAPES, n_refs=3, per=8,
                          np.full(per, h), *fl))
     e, dy, dx, w, h, fh, fv = (np.concatenate(c) for c in zip(*cols))
     order = rng.permutation(len(e))
+    comp = None
+    if compound:
+        # another job of the same plane and size lends its origin and
+        # filter rows to the second reference
+        n = len(e)
+        key = (e % 3) * (1 << 20) + w * 1024 + h
+        o = np.argsort(key * n + rng.permutation(n), kind="stable")
+        lend = np.empty(n, np.int64)
+        lend[o] = np.roll(o, 1)
+        lend = np.where(key[lend] == key, lend, np.arange(n))
+        ct = np.where(rng.integers(0, 2, n) == 0, omc.CT_AVG,
+                      omc.CT_WEIGHTED_AVG)
+        ct[rng.integers(0, 3, n) == 0] = omc.CT_NONE
+        jw = rng.choice([2, 3, 4, 5, 7, 9, 11, 12, 13, 14], n)
+        comp = tuple(a[order] for a in ((e + 3) % (3 * n_refs), dy[lend],
+                                        dx[lend], fh[lend], fv[lend], ct,
+                                        jw))
     # output: each job's block in a row of blocks 128 wide (stride 128)
     size = (128 * h)[order].astype(np.int64)
     off = np.cumsum(size) - size
     jobs, tiles, n_pix = omc.job_table(e[order], dy[order], dx[order],
                                        w[order], h[order], off, 128,
                                        fh[order], fv[order],
-                                       int(size.sum()))
+                                       int(size.sum()), compound=comp)
     return (planes, coded, torch.from_numpy(jobs).to(device),
             torch.from_numpy(tiles).to(device), n_pix, int(size.sum()),
             bitdepth)
@@ -1163,6 +1185,16 @@ def make_cases(device, shapes=SHAPES, seed=0):
             f"128x128 luma, 4x4 chroma only bd{bd}", omc.put_8tap_resident,
             omc.put_8tap_resident_plain,
             _mc_args(rng, device, bd, shapes, per=24,
+                     blocks={"luma": (128, 128), "chroma": (4, 4)})))
+        # compound jobs (avg and distance-weighted) among single ones
+        cases["mc"].append((
+            f"compound, 3 refs x 3 planes, all sizes bd{bd}",
+            omc.put_8tap_resident, omc.put_8tap_resident_plain,
+            _mc_args(rng, device, bd, shapes, compound=True)))
+        cases["mc"].append((
+            f"compound 128x128 luma, 4x4 chroma only bd{bd}",
+            omc.put_8tap_resident, omc.put_8tap_resident_plain,
+            _mc_args(rng, device, bd, shapes, per=24, compound=True,
                      blocks={"luma": (128, 128), "chroma": (4, 4)})))
         cases["itx"].append((
             f"194 pairs x 48 blocks bd{bd}", oitx.itx_frame,

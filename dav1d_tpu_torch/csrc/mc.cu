@@ -35,13 +35,22 @@
 //   the horizontal pass once per window row and the vertical pass over
 //   the int32 intermediate, each thread making 4 outputs from 11 shared
 //   reads; __syncwarp between the phases;
+// * a compound job (two references, an average or distance-weighted
+//   blend: the reference's prep_8tap_c of each, then avg_c / w_avg_c)
+//   runs the stage and the horizontal pass once per reference through
+//   the same shared arrays; its reference-0 vertical sums stay in the
+//   thread's registers (an mc::Acc, 16 ints at the largest tile) until
+//   the reference-1 pass blends them, so a compound tile costs one more
+//   window and no more shared memory.  The branch is per job, and a
+//   warp is one tile of one job, so no warp diverges on it;
 // * 6.5 KB of shared memory a warp (26 KB a CTA): 8 CTAs, 32 warps,
 //   per SM.
 //
-// ptxas (sm_90a, CUDA 12.8): 52 registers (uint8 out) / 54 (int16 out),
-// 26,496 B of shared memory, no spills.  On the H100 (700 W) a launch
-// over a 1080p inter frame (2,037 jobs, 6,418 tiles) takes 0.019 ms, a
-// quarter of it the byte bound: what remains is the stage's load
+// ptxas (sm_90a, CUDA 12.8): 63 registers (both output types), 26,832 B
+// of shared memory, no spills (single-reference only: 52 / 54, 26,496
+// B); 8 CTAs an SM still fit the register file.  On the H100 (700 W) a
+// launch over a 1080p inter frame (2,037 jobs, 6,418 tiles) took 0.019
+// ms, a quarter of it the byte bound: what remains is the stage's load
 // latency and the tiles' integer multiply-adds.
 #include "common.cuh"
 #include "mc_core.cuh"
@@ -49,6 +58,12 @@
 namespace {
 
 constexpr int WARPS = 4;
+
+__device__ inline mc::Ref ref_of(const long long* table, int entry) {
+    const long long* tb = table + 4 * entry;
+    return mc::Ref{reinterpret_cast<const int*>(__ldg(tb)), __ldg(tb + 1),
+                   (int)__ldg(tb + 2), (int)__ldg(tb + 3)};
+}
 
 template <typename T>
 __global__ void __launch_bounds__(32 * WARPS)
@@ -68,14 +83,27 @@ __global__ void __launch_bounds__(32 * WARPS)
     mc::load_job(s, jobs + (long long)__ldg(tl + mc::T_JOB) * mc::JOB_COLS,
                  lane, 32);
     __syncwarp();
-    const long long* tb = table + 4 * s.job[mc::J_ENTRY];
-    const mc::Ref ref{reinterpret_cast<const int*>(__ldg(tb)), __ldg(tb + 1),
-                      (int)__ldg(tb + 2), (int)__ldg(tb + 3)};
-    mc::stage(s, ref, ty, tx, th, tw, lane, 32);
+    mc::stage(s, ref_of(table, s.job[mc::J_ENTRY]), 0, ty, tx, th, tw, lane,
+              32);
     __syncwarp();
-    mc::hpass(s, th, tw, ib, lane, 32);
+    mc::hpass(s, 0, th, tw, ib, lane, 32);
     __syncwarp();
-    mc::vpass<T>(s, out, ty, tx, th, tw, ib, maxp, lane, 32);
+    if (s.job[mc::J_COMP] == mc::CT_NONE) {  // uniform: one job a warp
+        mc::vpass<T>(s, out, ty, tx, th, tw, ib, maxp, lane, 32);
+        return;
+    }
+    // compound: reference 0's prep values stay in registers while
+    // reference 1's window replaces its window (hpass 0 is done) and
+    // its intermediate replaces the intermediate (after the sync, every
+    // vprep read is done)
+    mc::Acc acc;
+    mc::vprep(s, acc, th, tw, lane, 32);
+    mc::stage(s, ref_of(table, s.job[mc::J_ENTRY1]), 1, ty, tx, th, tw,
+              lane, 32);
+    __syncwarp();
+    mc::hpass(s, 1, th, tw, ib, lane, 32);
+    __syncwarp();
+    mc::vblend<T>(s, acc, out, ty, tx, th, tw, ib, maxp, lane, 32);
 }
 
 }  // namespace

@@ -41,6 +41,8 @@ kernel launch through :func:`launch`, every upload through
 * ``COUNTS``: work counted by the stages, always on: ``inter_blocks``
   (inter blocks of the decoded frames), ``mc_blocks`` (the blocks
   whose predictions the batched MC stage computed on the device),
+  ``mc_compound_blocks`` (those of them with two references, counted
+  in ``mc_blocks`` too),
   ``itx_blocks`` (the transform blocks whose residuals the itx stage
   computed), ``lr_wiener_units`` and ``lr_sgr_units`` (the stripe units
   the loop-restoration stage filtered); with device intra

@@ -362,6 +362,14 @@ def _load():
     lib.dtpu_add_block_residuals.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
     lib.dtpu_add_block_residuals.restype = None
+    lib.dtpu_mc_jobs.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,             # rc, ic
+        ctypes.c_void_p, ctypes.c_int64,              # idxs, nb
+        ctypes.c_void_p, ctypes.c_void_p,             # ent, base
+        ctypes.c_void_p, ctypes.c_int64,              # stride, n_out
+        ctypes.c_void_p, ctypes.c_void_p,             # jobs, tiles
+        ctypes.c_void_p]                              # n_pix
+    lib.dtpu_mc_jobs.restype = ctypes.c_int64
     return lib
 
 

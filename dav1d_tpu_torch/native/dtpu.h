@@ -561,6 +561,12 @@ void dtpu_add_inter_residuals(const DtpuReplayCtx *rc, int64_t start,
 void dtpu_add_block_residuals(const DtpuReplayCtx *rc, const int64_t *idxs,
                               int64_t n);
 
+int64_t dtpu_mc_jobs(const DtpuReplayCtx *rc, const DtpuInterCtx *ic,
+                     const int64_t *idxs, int64_t nb, const int32_t *ent,
+                     const int64_t *base, const int64_t *stride,
+                     int64_t n_out, int32_t *jobs, int32_t *tiles,
+                     int64_t *n_pix);
+
 /* ---- film grain (fg.c; headers.py FilmGrainData mirror) ----------------- */
 
 typedef struct {

@@ -678,3 +678,113 @@ void dtpu_add_block_residuals(const DtpuReplayCtx *rc, const int64_t *idxs,
         add_block_residuals(rc, cb, maxp);
     }
 }
+
+/* job row columns (ops/mc.py J_*, csrc/mc_core.cuh): reference 0's
+ * entry, dy, dx at 0-2 and taps at 7 (h) and 15 (v); reference 1's at
+ * 23-25, 26 and 34 */
+enum {
+    MC_J_W = 3, MC_J_H = 4, MC_J_OUT = 5, MC_J_OSTRIDE = 6, MC_J_FH = 7,
+    MC_J_ENTRY1 = 23, MC_J_FH1 = 26, MC_J_COMP = 42, MC_J_JW = 43,
+    MC_JOB_COLS = 44
+};
+#define MC_TILE_W 32
+#define MC_TILE_H 16
+
+static void mc_taps(int32_t *row, const int8_t *tbl, int set, int phase)
+{
+    if (!phase) {
+        for (int t = 0; t < 8; t++)
+            row[t] = t == 3 ? 64 : 0;
+        return;
+    }
+    const int8_t *r = tbl + ((int64_t)set * 15 + (phase - 1)) * 8;
+    for (int t = 0; t < 8; t++)
+        row[t] = r[t];
+}
+
+/* The device MC stage's job table (ops/mc.py job_table rows, MC_JOB_COLS
+ * int32 each) and tile list (ops/mc.py tile_list rows) of the selected
+ * blocks idxs[0..nb) (pipeline.mc_select): one job per (plane, block),
+ * plane-major; a compound block's job also holds its second reference,
+ * blend and jnt weight, a single-reference job zeros there.  ent[7][3]:
+ * the launch table's entry of each (reference, plane); base[pl] and
+ * stride[pl]: the plane's offset and row stride in the n_out-pixel
+ * output.  With jobs == NULL only counts the tiles.  Returns the number
+ * of tiles (*n_pix: the pixels of all jobs), or -1 when a job's block
+ * is not a positive multiple of 4 a side or leaves the output. */
+int64_t dtpu_mc_jobs(const DtpuReplayCtx *rc, const DtpuInterCtx *ic,
+                     const int64_t *idxs, int64_t nb, const int32_t *ent,
+                     const int64_t *base, const int64_t *stride,
+                     int64_t n_out, int32_t *jobs, int32_t *tiles,
+                     int64_t *n_pix)
+{
+    const int n_pl = rc->layout ? 3 : 1;
+    int64_t nt = 0, pix = 0, j = 0;
+    for (int pl = 0; pl < n_pl; pl++) {
+        const int ss_h = pl ? rc->ss_hor : 0, ss_v = pl ? rc->ss_ver : 0;
+        const int h_mul = 4 >> ss_h, v_mul = 4 >> ss_v;
+        for (int64_t i = 0; i < nb; i++, j++) {
+            const CapBlock *cb = &rc->cap_blocks[idxs[i]];
+            const uint8_t *bd = rc->block_dim + 4 * cb->bs;
+            const int w = bd[0] * h_mul, h = bd[1] * v_mul;
+            const int64_t out = base[pl] +
+                                (int64_t)((cb->by * 4) >> ss_v) * stride[pl] +
+                                ((cb->bx * 4) >> ss_h);
+            if (w < 4 || h < 4 || ((w | h) & 3) || stride[pl] < w ||
+                out < 0 || out + (h - 1) * stride[pl] + w > n_out)
+                return -1;
+            nt += (int64_t)((w + MC_TILE_W - 1) / MC_TILE_W) *
+                  ((h + MC_TILE_H - 1) / MC_TILE_H);
+            pix += (int64_t)w * h;
+            if (!jobs)
+                continue;
+            int32_t *r = jobs + j * MC_JOB_COLS;
+            memset(r, 0, MC_JOB_COLS * sizeof(int32_t));
+            r[MC_J_W] = w;
+            r[MC_J_H] = h;
+            r[MC_J_OUT] = (int32_t)out;
+            r[MC_J_OSTRIDE] = (int32_t)stride[pl];
+            /* 4-px sides take the 4-tap sets (3 + (type & 1)) */
+            const int ht = f2d_htype[cb->filter2d], vt = cb->filter2d % 3;
+            const int fh_set = w > 4 ? ht : 3 + (ht & 1);
+            const int fv_set = h > 4 ? vt : 3 + (vt & 1);
+            const int comp = cb->comp_type != CT_NONE;
+            for (int k = 0; k <= comp; k++) {
+                /* reference k's entry, dy, dx; its h and v taps */
+                int32_t *c = r + (k ? MC_J_ENTRY1 : 0);
+                int32_t *f = r + (k ? MC_J_FH1 : MC_J_FH);
+                const int refidx = (k ? cb->pad1 : cb->pad0) - 1;
+                const int mvy = cb->mv[k][0], mvx = cb->mv[k][1];
+                c[0] = ent[refidx * 3 + pl];
+                c[1] = cb->by * v_mul + (mvy >> (3 + ss_v));
+                c[2] = cb->bx * h_mul + (mvx >> (3 + ss_h));
+                mc_taps(f, ic->subpel_filters, fh_set,
+                        (mvx & (15 >> !ss_h)) << !ss_h);
+                mc_taps(f + 8, ic->subpel_filters, fv_set,
+                        (mvy & (15 >> !ss_v)) << !ss_v);
+            }
+            if (comp) {
+                r[MC_J_COMP] = cb->comp_type;
+                r[MC_J_JW] = ic->jnt_weights[cb->pad0 - 1][cb->pad1 - 1];
+            }
+        }
+    }
+    if (jobs) {
+        /* the tiles of each job, row by row (ops/mc.py tile_list) */
+        int32_t *t = tiles;
+        for (int64_t k = 0; k < j; k++) {
+            const int w = jobs[k * MC_JOB_COLS + MC_J_W];
+            const int h = jobs[k * MC_JOB_COLS + MC_J_H];
+            for (int y = 0; y < h; y += MC_TILE_H)
+                for (int x = 0; x < w; x += MC_TILE_W, t += 5) {
+                    t[0] = (int32_t)k;
+                    t[1] = y;
+                    t[2] = x;
+                    t[3] = imin(MC_TILE_H, h - y);
+                    t[4] = imin(MC_TILE_W, w - x);
+                }
+        }
+    }
+    *n_pix = pix;
+    return nt;
+}

@@ -23,6 +23,15 @@ stride into one flat output buffer (the decoder lays the current
 frame's planes out there, so the predictions land in place).  The
 buffer starts zeroed; pixels no job writes stay 0.
 
+A compound job (``J_COMP`` = ``CT_AVG`` or ``CT_WEIGHTED_AVG``) also
+names a second reference, origin and filter pair: both predictions are
+made in the reference's prep form (prep_8tap_c: the vertical sum rounded
+by 6, less PREP_BIAS above 8-bit) and blended per pixel, avg_c
+``clip((p0 + p1 + rnd) >> (ib + 1))`` or w_avg_c
+``clip((p0 * jw + p1 * (16 - jw) + rnd) >> (ib + 4))`` with the job's
+jnt weight ``jw`` (src/mc_tmpl.c; dav1d_tpu/ops/mc.py prep_8tap, avg,
+w_avg).  A single-reference job has ``J_COMP`` = ``CT_NONE``.
+
 * :func:`put_8tap_resident_plain` is the plain PyTorch version: per
   (plane, w, h) group, the clamped index gather and the separable filter
   of the reference's ``_put_8tap_resident_prog``/``_put_core``
@@ -47,7 +56,15 @@ from ..kernels import build
 J_ENTRY, J_DY, J_DX, J_W, J_H, J_OUT, J_OSTRIDE = range(7)
 J_FH = 7      # 8 horizontal taps
 J_FV = 15     # 8 vertical taps
-JOB_COLS = 23
+# a compound job's second reference (plane, origin, taps), its blend and
+# jnt weight (0 on single-reference jobs)
+J_ENTRY1, J_DY1, J_DX1 = 23, 24, 25
+J_FH1 = 26
+J_FV1 = 34
+J_COMP, J_JW = 42, 43
+JOB_COLS = 44
+# J_COMP values (levels.CompInterType)
+CT_NONE, CT_WEIGHTED_AVG, CT_AVG = 0, 1, 2
 # columns of a tile row (int32; mc_core.cuh T_*): job, origin inside the
 # job's block, size; and the largest tile (one warp of the kernel each)
 T_JOB, T_Y, T_X, T_H, T_W = range(5)
@@ -85,16 +102,21 @@ def tile_list(w, h) -> np.ndarray:
     return tiles
 
 
-def job_table(entry, dy, dx, w, h, out_off, out_stride, fh, fv, n_out):
+def job_table(entry, dy, dx, w, h, out_off, out_stride, fh, fv, n_out,
+              compound=None):
     """The job rows for :func:`put_8tap_resident`: the table entry
     (reference plane) each job reads, its block origin (dy, dx) in that
     plane (signed: it may lie outside), its size, the output offset of
     its top-left pixel and its output row stride, and its two 8-tap
-    filter rows.  Returns ((N, JOB_COLS) int32 rows, their
-    :func:`tile_list`, number of pixels); raises if a job's block leaves
-    the ``n_out``-pixel output or a side is not a positive multiple of 4
-    (every MC block of the codec; the kernel makes 4 outputs a
-    thread)."""
+    filter rows; with ``compound`` = (entry1, dy1, dx1, fh1, fv1,
+    comp_type, jnt_weight), each job's second reference, origin and
+    filter rows, its ``CT_*`` blend (``CT_NONE``: a single-reference job,
+    whose second-reference columns are ignored) and its jnt weight.
+    Returns ((N, JOB_COLS) int32 rows, their :func:`tile_list`, number
+    of pixels); raises if a job's block leaves the ``n_out``-pixel output
+    or a side is not a positive multiple of 4 (every MC block of the
+    codec; the kernel makes 4 outputs a thread), or on a blend other
+    than CT_NONE / CT_WEIGHTED_AVG / CT_AVG or a weight outside 0..16."""
     n = len(dy)
     w = np.broadcast_to(w, n).astype(np.int64)
     h = np.broadcast_to(h, n).astype(np.int64)
@@ -112,6 +134,19 @@ def job_table(entry, dy, dx, w, h, out_off, out_stride, fh, fv, n_out):
         jobs[:, col] = v
     jobs[:, J_FH:J_FH + 8] = fh
     jobs[:, J_FV:J_FV + 8] = fv
+    if compound is not None:
+        entry1, dy1, dx1, fh1, fv1, comp, jw = compound
+        comp = np.broadcast_to(comp, n)
+        jw = np.broadcast_to(jw, n)
+        if n and (~np.isin(comp, (CT_NONE, CT_WEIGHTED_AVG, CT_AVG)).any()
+                  or jw.min() < 0 or jw.max() > 16):
+            raise ValueError("compound jobs blend by CT_AVG or "
+                             "CT_WEIGHTED_AVG, with a weight in 0..16")
+        for col, v in ((J_ENTRY1, entry1), (J_DY1, dy1), (J_DX1, dx1),
+                       (J_COMP, comp), (J_JW, jw)):
+            jobs[:, col] = v
+        jobs[:, J_FH1:J_FH1 + 8] = fh1
+        jobs[:, J_FV1:J_FV1 + 8] = fv1
     return jobs, tile_list(w, h), int((w * h).sum())
 
 
@@ -119,36 +154,66 @@ def _rnd_shift(x: torch.Tensor, sh: int) -> torch.Tensor:
     return (x + ((1 << sh) >> 1)) >> sh
 
 
+def _vsums(planes, coded, g, e, w, h, cols, ib):
+    """The unrounded vertical 8-tap sums (n, h, w) of the jobs ``g``,
+    all of plane ``e`` and size w x h, through the reference whose
+    origin and taps lie at ``cols`` = (J_DY, J_DX, J_FH, J_FV) or the
+    second reference's columns; every read clamped to ``coded[e]``."""
+    c_dy, c_dx, c_fh, c_fv = cols
+    dev = g.device
+    vh, vw = coded[e]
+    ys = torch.clamp(g[:, c_dy, None]
+                     + torch.arange(-3, h + 4, device=dev), 0, vh - 1)
+    xs = torch.clamp(g[:, c_dx, None]
+                     + torch.arange(-3, w + 4, device=dev), 0, vw - 1)
+    src = planes[e][ys[:, :, None], xs[:, None, :]]  # (n, h+7, w+7)
+    fh = g[:, c_fh:c_fh + 8]
+    fv = g[:, c_fv:c_fv + 8]
+    mid = sum(src[:, :, t:t + w] * fh[:, None, None, t] for t in range(8))
+    mid = _rnd_shift(mid, 6 - ib)
+    return sum(mid[:, t:t + h, :] * fv[:, None, None, t] for t in range(8))
+
+
 def put_8tap_resident_plain(planes, coded, jobs: torch.Tensor,
                             tiles: torch.Tensor, n_pix: int, n_out: int,
                             bitdepth: int) -> torch.Tensor:
     """Every job of ``jobs`` (:func:`job_table` rows, int32; ``n_pix``
     pixels in all) filtered from ``planes[entry]`` (2-D int32), each
-    read clamped to ``coded[entry]`` = (vh, vw); returns the (n_out,)
-    narrow output buffer with every job's block in place.  ``tiles``
-    is the kernel's schedule and does not change the result: the plain
-    version works per (plane, w, h) group of jobs."""
+    read clamped to ``coded[entry]`` = (vh, vw), a compound job's two
+    predictions blended (module docstring); returns the (n_out,) narrow
+    output buffer with every job's block in place.  ``tiles`` is the
+    kernel's schedule and does not change the result: the plain version
+    works per (blend, planes, w, h) group of jobs."""
     ib = intermediate_bits(bitdepth)
+    maxp = (1 << bitdepth) - 1
     dev = jobs.device
     out = torch.zeros(n_out, dtype=out_dtype(bitdepth), device=dev)
-    key = (jobs[:, J_ENTRY].long() << 32) | (jobs[:, J_W].long() << 16) \
-        | jobs[:, J_H].long()
-    for k in torch.unique(key).tolist():
-        g = jobs[key == k]
-        e, w, h = k >> 32, (k >> 16) & 0xFFFF, k & 0xFFFF
-        vh, vw = coded[e]
-        ys = torch.clamp(g[:, J_DY, None]
-                         + torch.arange(-3, h + 4, device=dev), 0, vh - 1)
-        xs = torch.clamp(g[:, J_DX, None]
-                         + torch.arange(-3, w + 4, device=dev), 0, vw - 1)
-        src = planes[e][ys[:, :, None], xs[:, None, :]]  # (n, h+7, w+7)
-        fh = g[:, J_FH:J_FH + 8]
-        fv = g[:, J_FV:J_FV + 8]
-        mid = sum(src[:, :, t:t + w] * fh[:, None, None, t]
-                  for t in range(8))
-        mid = _rnd_shift(mid, 6 - ib)
-        o = sum(mid[:, t:t + h, :] * fv[:, None, None, t] for t in range(8))
-        o = torch.clamp(_rnd_shift(o, 6 + ib), 0, (1 << bitdepth) - 1)
+    comp = jobs[:, J_COMP]
+    key = torch.stack([comp, jobs[:, J_ENTRY],
+                       torch.where(comp != CT_NONE, jobs[:, J_ENTRY1], 0),
+                       jobs[:, J_W], jobs[:, J_H]], 1)
+    for k in torch.unique(key, dim=0).tolist():
+        ct, e, e1, w, h = k
+        g = jobs[(key == torch.tensor(k, dtype=key.dtype,
+                                      device=dev)).all(1)]
+        o = _vsums(planes, coded, g, e, w, h, (J_DY, J_DX, J_FH, J_FV), ib)
+        if ct == CT_NONE:
+            o = torch.clamp(_rnd_shift(o, 6 + ib), 0, maxp)
+        else:
+            # prep_8tap_c's intermediates (PREP_BIAS cancels in both
+            # blends: the rounding constants below add it back)
+            bias = 0 if bitdepth == 8 else 8192
+            p0 = _rnd_shift(o, 6) - bias
+            p1 = _rnd_shift(_vsums(planes, coded, g, e1, w, h,
+                                   (J_DY1, J_DX1, J_FH1, J_FV1), ib),
+                            6) - bias
+            if ct == CT_AVG:
+                o = (p0 + p1 + (1 << ib) + 2 * bias) >> (ib + 1)
+            else:
+                jw = g[:, J_JW, None, None]
+                o = (p0 * jw + p1 * (16 - jw) + (8 << ib) + 16 * bias) \
+                    >> (ib + 4)
+            o = torch.clamp(o, 0, maxp)
         dst = (g[:, J_OUT, None, None].long()
                + g[:, J_OSTRIDE, None, None].long()
                * torch.arange(h, device=dev)[:, None]

@@ -11,13 +11,14 @@ residuals start coming down.  Pass 2 (:func:`run_pass2`) collects them
 and executes the pixel work:
 
   1. batched translational MC on the frame's device (``f.device``): every
-     plain single-reference inter block is predicted from the reference
+     block of :func:`mc_select` (single reference, or compound with an
+     average or distance-weighted blend) is predicted from the reference
      planes that stay resident there (``_RefSlot.dev_planes``), one
      kernel launch per frame (ops/mc.py, csrc/mc.cu) writing into a copy
      of the frame's layout, which comes down once and is copied into the
      planes whole; the blocks get their residuals;
   2. the native phase-A replay predicts the other inter blocks on the
-     host and adds their residuals;
+     host and adds their residuals (span ``pass2.inter.host``);
   3. intra/intrabc/interintra blocks replay in decode order (their
      prediction reads reconstructed neighbours): on the host (the native
      walk), or, with ``f.device_intra`` (``Decoder(device_intra=True)``),
@@ -219,10 +220,6 @@ class _McDevice:
     __slots__ = ("handled", "block_idxs", "out", "bases")
 
 
-# filter2d -> horizontal filter type (reference dav1d_filter_2d order)
-_F2D_HTYPE = np.array([0, 0, 0, 2, 2, 2, 1, 1, 1], dtype=np.int32)
-
-
 def _resident_planes(slot, bitdepth, device):
     """The slot's final planes on ``device``: the resident planes its
     frame left there, or (for a slot that never had them: imported
@@ -233,11 +230,13 @@ def _resident_planes(slot, bitdepth, device):
 
 
 def mc_select(f, cb):
-    """The blocks the device MC stage predicts: plain translational
-    single-reference inter blocks (no compound/OBMC/warp/interintra,
-    a regular filter2d), from an unscaled reference that holds pixels,
-    no global-motion warp, and not sub-8x8 chroma (reference
-    pipeline._launch_mc_device).  Returns (sel, ref0)."""
+    """The blocks the device MC stage predicts: translational inter
+    blocks (no OBMC/warp/interintra, a regular filter2d, not sub-8x8
+    chroma) whose references are unscaled and hold pixels, either single
+    reference with no global-motion warp, or compound with a per-pixel
+    blend (CT_AVG, CT_WEIGHTED_AVG) and neither reference warped by
+    global motion (native/replay_inter.c's compound branch).  CT_SEG
+    and CT_WEDGE stay on the host.  Returns (sel, ref0, ref1)."""
     from . import tables
 
     bdim = tables.block_dimensions
@@ -245,6 +244,7 @@ def mc_select(f, cb):
     bh4s = bdim[cb["bs"], 1].astype(np.int32)
     hdr = f.frame_hdr
     ref0 = cb["pad0"].astype(np.int32) - 1
+    ref1 = cb["pad1"].astype(np.int32) - 1
 
     ref_ok = np.zeros(7, dtype=bool)
     for i in range(7):
@@ -255,116 +255,89 @@ def mc_select(f, cb):
                      and slot.frame_hdr.height == hdr.height)
     gwa = np.asarray([bool(v) for v in f.gmv_warp_allowed], dtype=bool)
     r0c = np.clip(ref0, 0, 6)
+    r1c = np.clip(ref1, 0, 6)
+    ct = cb["comp_type"]
+    single = (ct == dmc.CT_NONE) & ~((cb["inter_mode"] == 2) & gwa[r0c])
+    compound = (((ct == dmc.CT_AVG) | (ct == dmc.CT_WEIGHTED_AVG))
+                & (ref1 >= 0) & ref_ok[r1c]
+                & ~((cb["inter_mode"] == 6) & (gwa[r0c] | gwa[r1c])))
     sel = ((cb["kind"] == 1) & (cb["interintra_type"] == 0)
-           & (cb["comp_type"] == 0) & (cb["motion_mode"] == 0)
-           & (cb["filter2d"] <= 8) & (ref0 >= 0) & ref_ok[r0c]
-           & ~((cb["inter_mode"] == 2) & gwa[r0c])
+           & (cb["motion_mode"] == 0) & (cb["filter2d"] <= 8)
+           & (ref0 >= 0) & ref_ok[r0c] & (single | compound)
            & (bw4s > f.ss_hor) & (bh4s > f.ss_ver))
-    return sel, ref0
+    return sel, ref0, ref1
 
 
-def _launch_mc_device(f, glue, n):
+def _launch_mc_device(f, cb, rows, n, rc, ic):
     """Batched translational MC on ``f.device``: every block of
-    :func:`mc_select` contributes one job per plane (its origin, size,
-    and the two 8-tap filter rows of its subpel phase), and ONE kernel
-    launch filters every job of the frame straight from the resident
-    reference planes, clamping each read to the reference's coded size
-    (emu_edge).  The reference's three tiers (Pallas gather from a
-    replicated-border stack, XLA clamped gather, host-gathered windows,
-    dav1d_tpu/pipeline.py:404-523) and its 4/8/16 tile bucketing are
-    shapes of the TPU; here one job is one block plane.  Returns None
-    when no block qualifies."""
-    from . import tables
+    :func:`mc_select` (over ``cb``, the capture records of the arena
+    rows ``rows`` that the frame used, of ``n``) contributes one job per
+    plane (its origin, size, and the two 8-tap filter rows of its subpel
+    phase; a compound block also its second reference's, its blend and
+    its jnt weight), and ONE kernel launch filters every job of the
+    frame straight from the resident reference planes, clamping each
+    read to the reference's coded size (emu_edge).  The port's native C
+    (``dtpu_mc_jobs``, over the replay contexts ``rc`` and ``ic``)
+    writes the job rows and their tile list straight into the buffer
+    that goes up.  The reference's
+    three tiers (Pallas gather from a replicated-border stack, XLA
+    clamped gather, host-gathered windows, dav1d_tpu/pipeline.py:404-523)
+    and its 4/8/16 tile bucketing are shapes of the TPU; here one job is
+    one block plane.  Returns None when no block qualifies."""
+    from .native import lib as _nlib
 
-    cb = glue.cap_blocks[:n]
-    sel, ref0 = mc_select(f, cb)
-    idxs = np.flatnonzero(sel)
-    if idxs.size == 0:
+    sel, ref0, ref1 = mc_select(f, cb)
+    pos = np.flatnonzero(sel)
+    if pos.size == 0:
         return None
-
-    bdim = tables.block_dimensions
-    bw4 = bdim[cb["bs"][idxs], 0].astype(np.int32)
-    bh4 = bdim[cb["bs"][idxs], 1].astype(np.int32)
-    bx = cb["bx"][idxs].astype(np.int32)
-    by = cb["by"][idxs].astype(np.int32)
-    mv = cb["mv"][idxs]
-    mvy = mv[:, 0, 0].astype(np.int32)
-    mvx = mv[:, 0, 1].astype(np.int32)
-    f2d = cb["filter2d"][idxs].astype(np.int32)
-    refs = ref0[idxs]
-    ht = _F2D_HTYPE[f2d]
-    vt = f2d % 3
+    idxs = rows[pos]  # the blocks' arena rows
     hdr = f.frame_hdr
-    ss_hor, ss_ver = f.ss_hor, f.ss_ver
     n_pl = 3 if f.layout != 0 else 1
-    subf = np.ascontiguousarray(tables.mc_subpel_filters, dtype=np.int32)
+    is_comp = cb["comp_type"][pos] != dmc.CT_NONE
 
-    def taps(sets, phase):
-        """(N, 8) filter rows: the identity row at phase 0, else the
-        subpel row of the set (mx/my == 0 collapses the H/V-only and
-        copy paths into the fused one, ops/mc.py docstring)."""
-        rows = np.zeros((len(phase), 8), dtype=np.int32)
-        rows[:, 3] = 64
-        nz = phase != 0
-        rows[nz] = subf[sets[nz], phase[nz] - 1]
-        return rows
-
-    # device table: one entry per (ref slot, plane) the jobs read
-    entries = {}
+    # device table: one entry per (ref slot, plane) the jobs read, each
+    # clamped to the CODED size: rows/cols beyond it in the allocation
+    # are scratch (reference pipeline.py:201-204, :396-399)
+    sub = [(0, 0)] + [(f.ss_hor, f.ss_ver)] * (n_pl - 1)
+    coded_pl = [((hdr.height + v) >> v, (hdr.width[1] + u) >> u)
+                for u, v in sub]
     planes, coded = [], []
-    for r in np.unique(refs):
-        devp = _resident_planes(f.refp[int(r)], f.bitdepth, f.device)
-        for pl in range(n_pl):
-            ss_h = ss_hor if pl else 0
-            ss_v = ss_ver if pl else 0
-            entries[int(r), pl] = len(planes)
-            planes.append(devp[pl])
-            # clamp to the CODED size: rows/cols beyond it in the
-            # allocation are scratch (reference pipeline.py:201-204,
-            # :396-399)
-            coded.append(((hdr.height + ss_v) >> ss_v,
-                          (hdr.width[1] + ss_h) >> ss_h))
     ent_of = np.full((7, 3), -1, dtype=np.int32)
-    for (r, pl), e in entries.items():
-        ent_of[r, pl] = e
-
-    cols = []
-    for pl in range(n_pl):
-        ss_h = ss_hor if pl else 0
-        ss_v = ss_ver if pl else 0
-        h_mul, v_mul = 4 >> ss_h, 4 >> ss_v
-        sh_h, sh_v = (0 if ss_h else 1), (0 if ss_v else 1)
-        mx = (mvx & (15 >> sh_h)) << sh_h
-        my = (mvy & (15 >> sh_v)) << sh_v
-        w_px = bw4 * h_mul
-        h_px = bh4 * v_mul
-        # 4-px dimensions take the 4-tap sets (3 + (type & 1))
-        fh_set = np.where(w_px > 4, ht, 3 + (ht & 1))
-        fv_set = np.where(h_px > 4, vt, 3 + (vt & 1))
-        cols.append(dict(
-            pl=np.full(len(idxs), pl, np.int32), entry=ent_of[refs, pl],
-            dy=by * v_mul + (mvy >> (3 + ss_v)),
-            dx=bx * h_mul + (mvx >> (3 + ss_h)), w=w_px, h=h_px,
-            fh=taps(fh_set, mx), fv=taps(fv_set, my),
-            dst_y=(by * 4) >> ss_v, dst_x=(bx * 4) >> ss_h))
-    J = {k: np.concatenate([c[k] for c in cols]) for k in cols[0]}
+    for r in np.unique(np.concatenate([ref0[pos], ref1[pos][is_comp]])):
+        devp = _resident_planes(f.refp[int(r)], f.bitdepth, f.device)
+        for p in range(n_pl):
+            ent_of[r, p] = len(planes)
+            planes.append(devp[p])
+            coded.append(coded_pl[p])
 
     # the output buffer is the current frame's planes, narrow and back to
     # back: every job's block lands where the frame needs it
-    shapes = [f.planes[pl].shape for pl in range(n_pl)]
-    base = np.cumsum([0] + [h * w for h, w in shapes])
-    stride = np.array([w for _, w in shapes], dtype=np.int64)[J["pl"]]
-    jobs, tiles, n_pix = dmc.job_table(
-        J["entry"], J["dy"], J["dx"], J["w"], J["h"],
-        base[J["pl"]] + J["dst_y"] * stride + J["dst_x"], stride, J["fh"],
-        J["fv"], int(base[-1]))
+    shapes = [f.planes[p].shape for p in range(n_pl)]
+    base = np.cumsum([0] + [ph * pw for ph, pw in shapes], dtype=np.int64)
+    stride = np.array([pw for _, pw in shapes], dtype=np.int64)
+    n_jobs = n_pl * len(idxs)
+    n_pix = ctypes.c_int64()
+    args = (ctypes.byref(rc), ctypes.byref(ic), idxs.ctypes.data, len(idxs),
+            ent_of.ctypes.data, base.ctypes.data, stride.ctypes.data,
+            int(base[-1]))
+    n_tiles = _nlib.dtpu_mc_jobs(*args, None, None, ctypes.byref(n_pix))
+    if n_tiles < 0:
+        raise ValueError("job blocks outside the output")
     # jobs and tiles go up in one copy
-    both = devrt.upload(np.concatenate([jobs.ravel(), tiles.ravel()]),
-                        f.device)
-    out = devrt.call("mc", dmc.put_8tap_resident, planes, coded,
-                     both[:jobs.size].view(jobs.shape),
-                     both[jobs.size:].view(tiles.shape), n_pix,
-                     int(base[-1]), f.bitdepth)
+    both = np.empty(n_jobs * dmc.JOB_COLS + n_tiles * dmc.TILE_COLS,
+                    dtype=np.int32)
+    _nlib.dtpu_mc_jobs(*args, both.ctypes.data,
+                       both[n_jobs * dmc.JOB_COLS:].ctypes.data,
+                       ctypes.byref(n_pix))
+    with devrt.span("pass2.mc.upload"):
+        dev = devrt.upload(both, f.device)
+    with devrt.span("pass2.mc.call"):
+        out = devrt.call("mc", dmc.put_8tap_resident, planes, coded,
+                         dev[:n_jobs * dmc.JOB_COLS].view(n_jobs,
+                                                          dmc.JOB_COLS),
+                         dev[n_jobs * dmc.JOB_COLS:].view(n_tiles,
+                                                          dmc.TILE_COLS),
+                         n_pix.value, int(base[-1]), f.bitdepth)
 
     mc_st = _McDevice()
     mc_st.handled = np.zeros(n, dtype=np.uint8)
@@ -373,6 +346,8 @@ def _launch_mc_device(f, glue, n):
     mc_st.out = out
     mc_st.bases = base
     devrt.COUNTS["mc_blocks"] += len(idxs)
+    if is_comp.any():
+        devrt.COUNTS["mc_compound_blocks"] += int(is_comp.sum())
     return mc_st
 
 
@@ -418,15 +393,22 @@ def run_pass2(f, st) -> None:
         return
     rc = glue.build_replay_ctx(st.ptrs, st.elsz)
     ic = glue.build_inter_ctx()
+    # Walks are ranged per tile slice: parallel pass 1 leaves zeroed gap
+    # rows between slices that must never be visited (serial mode is one
+    # range); they are most of the arena (a 4K frame's four slices use
+    # ~1% of its ~415,000 rows), so the block tables below read only the
+    # used rows
+    ranges = glue.used_ranges("n_blocks")
+    rows = np.concatenate([np.arange(s, e) for s, e in ranges])
+    cb = glue.cap_blocks[rows]
 
     # batched device MC.  Its predictions come back before phase A: the
     # whole-plane copy needs no per-block scatter on the host, and
     # phase A and B then overwrite every pixel it must not keep
-    devrt.COUNTS["inter_blocks"] += int(
-        np.count_nonzero(glue.cap_blocks[:n]["kind"] == 1))
+    devrt.COUNTS["inter_blocks"] += int(np.count_nonzero(cb["kind"] == 1))
     with devrt.span("pass2.mc"):
         with devrt.span("pass2.mc.launch"):
-            mc_st = _launch_mc_device(f, glue, n)
+            mc_st = _launch_mc_device(f, cb, rows, n, rc, ic)
         if mc_st is not None:
             _scatter_mc_device(f, mc_st)
             with devrt.span("pass2.mc.resid"):
@@ -435,20 +417,18 @@ def run_pass2(f, st) -> None:
                                                len(mc_st.block_idxs))
 
     # phase A: order-free inter predictions + residual adds (the host
-    # tier: the residuals are already computed).  Walks are ranged per
-    # tile slice: parallel pass 1 leaves zeroed gap rows between slices
-    # that must never be visited (serial mode is one range).
-    ranges = glue.used_ranges("n_blocks")
+    # tier: the residuals are already computed)
     handled_ptr = mc_st.handled.ctypes.data if mc_st is not None else None
     skipped = np.empty(n, dtype=np.int64)
     ns = 0
-    for s, e in ranges:
-        if s < e:
-            ns += int(_nlib.dtpu_inter_replay(
-                ctypes.byref(rc), ctypes.byref(ic), s, e, 1,
-                skipped.ctypes.data + 8 * ns, handled_ptr))
-    for bi in skipped[:ns]:
-        _replay_one(t, glue.build_record(int(bi), st.resid_of_meta))
+    with devrt.span("pass2.inter.host"):
+        for s, e in ranges:
+            if s < e:
+                ns += int(_nlib.dtpu_inter_replay(
+                    ctypes.byref(rc), ctypes.byref(ic), s, e, 1,
+                    skipped.ctypes.data + 8 * ns, handled_ptr))
+        for bi in skipped[:ns]:
+            _replay_one(t, glue.build_record(int(bi), st.resid_of_meta))
 
     # phase B on the device: the wavefront levels of recon/device_intra
     if f.device_intra:

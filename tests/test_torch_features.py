@@ -31,9 +31,10 @@ deblock, CDEF or restoration call; super-res: a resize call on exactly
 the frames whose denominator is not 8; scaled references: inter blocks
 left to the host; intrabc frames to the host walk with device intra;
 film grain: one fg call per grained plane; 12-bit: int32 residuals;
-fused mode: the chain's calls of two-pass mode, frame by frame).
+compound average blocks: predicted by the MC call; fused mode: the
+chain's calls of two-pass mode, frame by frame).
 
-Cases: 2 + 4 x 17 decodes of part A + 9 counters + 11 fused-chain
+Cases: 2 + 4 x 17 decodes of part A + 13 counters + 11 fused-chain
 pairs.  Time alone in one process: ~75 s (part A's streams ~55 s).
 """
 
@@ -393,6 +394,18 @@ def test_hbd12_int32_residuals():
     log, _ = check_port("hbd12.ivf", "two_pass")
     dtypes = set().union(*(fr["itx_dtype"] for fr in log.frames))
     assert dtypes == {"torch.int32"}, dtypes
+
+
+@pytest.mark.parametrize("name,compound", [("kitchen_sink.ivf", 30),
+                                           ("long_gop.ivf", 11)])
+def test_compound_average_blocks_on_the_device_mc(name, compound):
+    """The streams' CT_AVG and CT_WEIGHTED_AVG blocks (kitchen_sink: 22
+    and 8, beside CT_SEG, CT_WEDGE, OBMC, warp and interintra blocks;
+    long_gop: 11 CT_AVG beside CT_SEG) go to the MC call, counted in
+    mc_blocks too, and the two-pass decode holds its md5."""
+    _, counts = check_port(name, "two_pass")
+    assert counts["mc_compound_blocks"] == compound, counts
+    assert counts["mc_blocks"] > compound, counts
 
 
 # the streams whose fused decode is held against the two-pass one call by

@@ -106,6 +106,15 @@ def test_children_within_parents(traced):
     assert api + s["api.client"] <= traced["wall"]
 
 
+def test_pass2_parts_within_pass2(traced):
+    """Pass 2's spanned parts: the device MC stage, the host's phase-A
+    replay of the inter blocks it left and the host's intra walk."""
+    s = traced["spans"]
+    assert s["pass2.inter.host"] > 0
+    parts = s["pass2.mc"] + s["pass2.inter.host"] + s["pass2.intra.host"]
+    assert parts <= s["pass2"] * 1.05 + 0.01
+
+
 def test_frames_busy_and_parallelism(traced):
     s = traced["spans"]
     assert 0 < s["frames.busy"] <= traced["wall"]
